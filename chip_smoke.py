@@ -9,16 +9,19 @@ non-zero exit and no result line:
   1. device: the card, torch/CUDA versions, the K1 build (nvcc, ptxas -v);
   2. K1 against its plain version on the card, exact keep masks, on
      candidates from the model's real post-softmax scores and on synthetic
-     boxes, both area conventions, and edge cases;
+     boxes, both area conventions, edge cases, ragged K (1, 63, 64, 65,
+     129, 1000, 1024 for one group) and K = the kernel's limit;
   3. the serving slice: RefineDet320 (VOC, 21 classes, 6375 priors) with
      seeded weights, fused-NMS serving through BatchingEngine from several
      client threads and over HTTP; K1's launch count must rise;
   4. kernel path against plain path on the same heads (exact), and the
      card's f32 heads against the CPU's on a small input;
-  5. timings on the card (CUDA events): K1 and its plain version at the
-     serving and detect shapes, and per batch of 32 in f32 and bf16 the
-     forward, the fused post-process and end-to-end serving (host clock,
-     numpy in to numpy out).
+  5. timings on the card: K1's device time per launch at the serving and
+     detect shapes (a CUDA graph of 50 launches, replayed between CUDA
+     events, so the wrapper's host cost is left out and printed on its own
+     line), its plain version's (CUDA events), and per batch of 32 in f32
+     and bf16 the forward, the fused post-process (CUDA events) and
+     end-to-end serving (host clock, numpy in to numpy out).
 
 The line before the last is the card's name and power limit from
 nvidia-smi; the last is {"ok": true, "device": {...}}. TF32 is off for
@@ -47,6 +50,8 @@ HTTP_REQUESTS = 2
 # Operations of one IoU test as the kernel computes it: 2 min, 2 max,
 # 2 sub, 2 add, 2 clamp, mul, add, sub, div, compare.
 IOU_OPS = 15
+RAGGED_K = (1, 63, 64, 65, 129, 1000, 1024)  # one group each
+LIMIT_GROUPS = 3                              # at K = the kernel's limit
 H100_BYTES_PER_S = 3.35e12   # HBM3, data sheet
 H100_F32_OPS_PER_S = 67e12   # f32 outside the tensor cores, data sheet
 
@@ -85,27 +90,22 @@ def host_ms(fn, reps: int, warmup: int = 2) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def pixel_images(rng, batch):
-    """Mean-subtracted f32 RGB images of uniform pixel noise."""
-    raw = rng.randint(0, 256, (batch, SIZE, SIZE, 3)).astype(np.float32)
-    return raw - np.asarray((123.0, 117.0, 104.0), np.float32)
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script needs "
               "one card", file=sys.stderr)
         return 1
 
-    from refinedet_tpu_torch.detect.detection import detect_refinedet
     from refinedet_tpu_torch.models import build_refinedet
     from refinedet_tpu_torch.ops import nms_cuda
-    from refinedet_tpu_torch.ops.nms import (nms_sweep_reference,
-                                             select_candidates)
+    from refinedet_tpu_torch.ops.nms import nms_sweep_reference
     from refinedet_tpu_torch.serve import (BatchingEngine, Server,
                                            client_detect, make_serving_fn)
     from refinedet_tpu_torch.serve.export import (fused_nms_settings,
                                                   fused_postprocess)
+    from refinedet_tpu_torch.tools.k1_bench import (graph_ms, noise_images,
+                                                    serving_candidates,
+                                                    uniform_candidates)
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -150,19 +150,13 @@ def main() -> int:
             f"mismatches {bad}")
 
     with torch.inference_mode():
-        for name, imgs in (("noise", pixel_images(rng, SERVE_BATCH)),
+        for name, imgs in (("noise", noise_images(rng, SERVE_BATCH)),
                            ("randn", rng.randn(SERVE_BATCH, SIZE, SIZE, 3)
                             .astype(np.float32))):
-            heads = model.raw_forward(torch.from_numpy(imgs).to(dev))
-            boxes, scores = detect_refinedet(
-                heads[0], heads[1].softmax(-1), heads[2],
-                heads[3].softmax(-1), model.priors)
-            cls = scores[..., 1:].movedim(-1, 1)  # [B, 20, P]
-            for top_k in (NMS_TOP_K, 256, DETECT_TOP_K):
-                _, _, cand, valid = select_candidates(
-                    boxes[:, None], cls, top_k, opts.conf_thresh)
-                cand = cand.reshape(-1, top_k, 4).contiguous()
-                valid = valid.reshape(-1, top_k).contiguous()
+            cands = serving_candidates(model, imgs,
+                                       (NMS_TOP_K, 256, DETECT_TOP_K),
+                                       opts.conf_thresh)
+            for top_k, (cand, valid) in cands.items():
                 for plus_one in (False, True):
                     # +1 areas are pixel-space: scale to the image first.
                     b = cand * SIZE if plus_one else cand
@@ -171,23 +165,29 @@ def main() -> int:
                     serve_cand, serve_valid = cand, valid  # timed in 5.
                 elif name == "noise" and top_k == DETECT_TOP_K:
                     detect_cand, detect_valid = cand, valid
-        for g, k in ((20 * SERVE_BATCH, 256), (20 * 8, 1024)):
-            xy = torch.rand(g, k, 2, device=dev) * 0.8
-            wh = torch.rand(g, k, 2, device=dev) * 0.28 + 0.02
-            syn = torch.cat([xy, xy + wh], -1)
-            valid = torch.rand(g, k, device=dev) < 0.8
+        shapes = [("uniform", 20 * SERVE_BATCH, 256),
+                  ("uniform", 20 * 8, 1024)]
+        shapes += [("ragged", 1, k) for k in RAGGED_K]
+        shapes += [("limit", LIMIT_GROUPS, kernel.max_k)]
+        for label, g, k in shapes:
             for plus_one in (False, True):
-                compare(syn * SIZE if plus_one else syn, valid, plus_one,
-                        "uniform")
+                b, valid = uniform_candidates(g, k, 0.8, seed=g + k,
+                                              scale=SIZE if plus_one else 1.0)
+                compare(b, valid, plus_one, label)
         same = torch.tensor([10.0, 10.0, 50.0, 60.0], device=dev).expand(
             4, 256, 4).contiguous()
         zero = torch.tensor([5.0, 5.0, 5.0, 5.0], device=dev).expand(
             4, 256, 4).contiguous()
+        # widths of -0 and +0: the plain version's + 0.0 makes them +0
+        signed = torch.tensor([[-0.0, -0.0, 0.0, 0.0], [0.0, 0.0, -0.0, 1.0],
+                               [-0.0, 0.0, 1.0, -0.0], [0.0, -0.0, 0.0, 2.0]],
+                              device=dev).repeat(4, 64, 1)
         idx = torch.arange(256, device=dev)
         masks = {"all": torch.ones(4, 256, dtype=torch.bool, device=dev),
                  "none": torch.zeros(4, 256, dtype=torch.bool, device=dev),
                  "sparse": (idx % 7 == 3).expand(4, 256).contiguous()}
-        for bname, b in (("identical", same), ("zero-area", zero)):
+        for bname, b in (("identical", same), ("zero-area", zero),
+                         ("signed-zero", signed)):
             for mname, m in masks.items():
                 for plus_one in (False, True):
                     compare(b, m, plus_one, f"edge/{bname}/{mname}")
@@ -207,7 +207,7 @@ def main() -> int:
     server = Server(engine, {"format": "refinedet-tpu-torch-serving",
                              "input_size": SIZE,
                              "num_classes": NUM_CLASSES})
-    requests = pixel_images(rng, ENGINE_REQUESTS + HTTP_REQUESTS)
+    requests = noise_images(rng, ENGINE_REQUESTS + HTTP_REQUESTS)
     results, errors = {}, []
 
     def client(tid):
@@ -254,7 +254,7 @@ def main() -> int:
         f"K1 launches {launches}")
 
     # -- 4. kernel path against plain path, same heads -----------------------
-    imgs = pixel_images(rng, SERVE_BATCH)
+    imgs = noise_images(rng, SERVE_BATCH)
     x = torch.from_numpy(imgs).to(dev)
     with torch.inference_mode():
         heads = model.raw_forward(x)
@@ -286,21 +286,40 @@ def main() -> int:
 
     # -- 5. timings ----------------------------------------------------------
     def time_sweep(cand, valid, label):
-        """K1 and plain ms on these candidates, and K1's bound."""
+        """K1's device ms per launch and the plain version's ms on these
+        candidates, and K1's bound."""
         g, k = valid.shape
         with torch.inference_mode():
-            ms = cuda_ms(lambda: nms_cuda.nms_sweep(
-                cand, valid, opts.nms_thresh), 50)
+            ms = graph_ms(lambda: nms_cuda.nms_sweep(
+                cand, valid, opts.nms_thresh))
             plain = cuda_ms(lambda: nms_sweep_reference(
                 cand, valid, opts.nms_thresh), 3, warmup=1)
-            kept = int(nms_cuda.nms_sweep(cand, valid, opts.nms_thresh).sum())
+            keep = nms_cuda.nms_sweep(cand, valid, opts.nms_thresh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                nms_cuda.nms_sweep(cand, valid, opts.nms_thresh)
+            host_us = (time.perf_counter() - t0) / 200 * 1e6
+            torch.cuda.synchronize()
+        kept_g = keep.sum(1).double()
+        valid_g = valid.sum(1).double()
+        kept = int(kept_g.sum())
         nbytes = g * k * (16 + 1 + 1)  # boxes + valid in, keep out
-        ops = IOU_OPS * kept * k       # one IoU per column per kept row
+        # The least greedy NMS can test: each kept column against every
+        # earlier kept row, each suppressed column at least once.
+        tests = int((kept_g * (kept_g - 1) / 2 + (valid_g - kept_g)).sum())
+        ops = IOU_OPS * tests
+        all_ops = IOU_OPS * kept * k  # every column against every kept row
         bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
         ops_ms = ops / H100_F32_OPS_PER_S * 1e3
-        log("time", f"K1 {label} G={g} K={k}: {ms:.4f} ms; plain "
-            f"{plain:.3f} ms; kept {kept}; bound {max(bytes_ms, ops_ms):.6f}"
-            f" ms ({nbytes} B, {ops} ops)")
+        all_bound = max(bytes_ms, all_ops / H100_F32_OPS_PER_S * 1e3)
+        log("time", f"K1 {label} G={g} K={k}: {ms:.4f} ms a launch (device, "
+            f"graph of 50); plain {plain:.3f} ms; kept {kept}; bound "
+            f"{max(bytes_ms, ops_ms):.6f} ms ({nbytes} B, {tests} IoU "
+            f"tests, {ops} ops); counting every column against every kept "
+            f"row: {all_bound:.6f} ms ({all_ops} ops)")
+        log("time", f"K1 {label} wrapper: {host_us:.1f} us host time a call "
+            f"(checks, allocation, ctypes launch)")
         return ms, plain, max(bytes_ms, ops_ms), \
             "bytes" if bytes_ms >= ops_ms else "operations"
 

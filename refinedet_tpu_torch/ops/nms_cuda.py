@@ -5,16 +5,17 @@ groups of K score-descending candidates (``boxes [G, K, 4]`` float32,
 ``valid [G, K]`` bool) it computes the greedy hard-NMS keep mask
 ``[G, K]``, bitwise equal to ``ops.nms.nms_sweep_reference``.
 
-What bounds it on this card: not bytes (18 per candidate: 16 in, one
-valid flag in, one keep flag out) and not arithmetic (one IoU per open
-column per kept row), but latency. Each group is a serial chain of #kept
-steps, and each step is a block-wide min-reduction whose result the next
-step needs. The design (``csrc/nms_sweep.cu``) runs one block per group,
-so the G chains run side by side across the SMs; stages the group's boxes
-and areas in shared memory, so a step reads its row by broadcast and
-touches no device memory; visits surviving rows only, as the TPU kernel
-does; and fuses suppression with the search for the next row, so a step
-costs one barrier.
+What bounds it on this card: neither bytes (18 per candidate: 16 in, one
+valid flag in, one keep flag out) nor the serial chain of the greedy
+sweep, but the pairwise IoU tests. The design (``csrc/nms_sweep.cu``)
+runs one block per group. Seven producer warps build the upper-triangle
+suppression bitmask in stripes of 64 rows, into a ring in shared memory,
+and spare most pairs the IEEE division with an exact one-FMA prefilter;
+one sweep warp consumes the stripes as they arrive, a 64-column word at a
+time, settling the greedy inside each word as a fixed point with warp
+OR-reductions, so no barrier of the block is taken per kept row and no
+chain of dependent steps is as long as the number of kept rows. The hand-off
+is one full and one empty ``mbarrier`` per stripe.
 
 The library is compiled by ``nvcc`` for ``sm_90a`` at first use, from the
 source in this package only, into ``_build/`` beside it, and loaded with
@@ -58,7 +59,7 @@ class KernelLibrary:
     path: Path
     build_seconds: float  # 0.0 when this source's library was already built
     build_log: str        # nvcc's output, with ptxas -v ("" when reused)
-    max_k: int            # largest K whose boxes fit in shared memory
+    max_k: int            # largest K the kernel takes
 
 
 _lock = threading.Lock()
@@ -75,8 +76,11 @@ def _nvcc() -> str:
                        f"{cuda_home}); it is needed to build the NMS kernel")
 
 
-def _build() -> KernelLibrary:
-    tag = hashlib.sha256(SOURCE.read_bytes()
+def build_library(source: Path = SOURCE) -> KernelLibrary:
+    """Build (once per source text and flags) and load a K1 library from
+    ``source``. The main path takes ``SOURCE``; a measurement may build a
+    variant of it."""
+    tag = hashlib.sha256(source.read_bytes()
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"libnms_sweep_{tag}.so"
     seconds, log = 0.0, ""
@@ -85,14 +89,14 @@ def _build() -> KernelLibrary:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
                               capture_output=True, text=True)
         seconds = time.perf_counter() - t0
         log = (proc.stdout + proc.stderr).strip()
         if proc.returncode != 0:
             os.unlink(tmp)
             raise RuntimeError(f"nvcc failed with code {proc.returncode} "
-                               f"building {SOURCE}:\n{log}")
+                               f"building {source}:\n{log}")
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
     lib = ctypes.CDLL(str(out))
     lib.nms_sweep_launch.argtypes = [
@@ -109,7 +113,7 @@ def load_kernel() -> KernelLibrary:
     global _library
     with _lock:
         if _library is None:
-            _library = _build()
+            _library = build_library()
         return _library
 
 

@@ -42,8 +42,14 @@ def _candidates(rng, g, k, scale):
 
 
 @pytest.mark.parametrize("plus_one", [False, True])
-@pytest.mark.parametrize("g,k", [(640, 200), (160, 1024), (3, 7)])
+@pytest.mark.parametrize("g,k", [
+    (640, 200), (160, 1024), (3, 7),
+    # ragged K around the 64-column words, one group each
+    (1, 1), (1, 63), (1, 64), (1, 65), (1, 129), (1, 1000), (1, 1024),
+    (3, "limit")])  # K = the kernel's largest
 def test_kernel_matches_plain(cuda, g, k, plus_one):
+    if k == "limit":
+        k = nms_cuda.load_kernel().max_k
     rng = np.random.RandomState(g + k)
     boxes, valid = _candidates(rng, g, k, 320.0 if plus_one else 1.0)
     want = nms_sweep_reference(boxes, valid, 0.45, plus_one)
@@ -54,13 +60,27 @@ def test_kernel_matches_plain(cuda, g, k, plus_one):
     assert torch.equal(got.cpu(), want)
 
 
+def test_kernel_limit(cuda):
+    max_k = nms_cuda.load_kernel().max_k
+    assert max_k >= 11068  # no lower than the first kernel's limit
+    boxes = torch.zeros(1, max_k + 1, 4, device=cuda)
+    valid = torch.ones(1, max_k + 1, dtype=torch.bool, device=cuda)
+    before = nms_cuda.nms_sweep.launches
+    with pytest.raises(ValueError, match="exceeds the kernel's limit"):
+        nms_cuda.nms_sweep(boxes, valid, 0.45)  # no fallback to the plain
+    assert nms_cuda.nms_sweep.launches == before
+
+
 def test_kernel_edge_cases(cuda):
     same = torch.tensor([[10.0, 10.0, 50.0, 60.0]]).repeat(2, 300, 1)
     zero = torch.tensor([[5.0, 5.0, 5.0, 5.0]]).repeat(2, 300, 1)
+    # widths of -0 and +0: the plain version's + 0.0 makes them +0
+    signed = torch.tensor([[-0.0, -0.0, 0.0, 0.0], [0.0, 0.0, -0.0, 1.0],
+                           [-0.0, 0.0, 1.0, -0.0]]).repeat(2, 100, 1)
     masks = [torch.ones(2, 300, dtype=torch.bool),
              torch.zeros(2, 300, dtype=torch.bool),
              torch.arange(300).remainder(7).eq(3).repeat(2, 1)]
-    for boxes in (same, zero):
+    for boxes in (same, zero, signed):
         for valid in masks:
             for plus_one in (False, True):
                 want = nms_sweep_reference(boxes, valid, 0.45, plus_one)
