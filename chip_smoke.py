@@ -21,7 +21,28 @@ non-zero exit and no result line:
      events, so the wrapper's host cost is left out and printed on its own
      line), its plain version's (CUDA events), and per batch of 32 in f32
      and bf16 the forward, the fused post-process (CUDA events) and
-     end-to-end serving (host clock, numpy in to numpy out).
+     end-to-end serving (host clock, numpy in to numpy out);
+  6. the training slice, RefineDet320 (VOC, 21 classes), full width,
+     ``max_boxes`` 60, on an in-memory dataset made from a numpy seed (no
+     cv2 on the card's host): (a) one f32 step at batch 2 on the card
+     against the same step on the CPU, from the same weights and batch
+     (losses rtol 2e-4, each parameter's update a relative L2 norm of
+     2e-2); (b) ``Trainer(...).train()`` at batch 32 in bf16 for 10 steps
+     into a temporary folder, every logged loss finite, the ``final`` and
+     epoch-10 checkpoints, a fresh ``Trainer.resume(10)`` restoring the
+     step, weights and momentum exactly, and one more step from it equal
+     to one from the live state; (c) 10 f32 steps on one batch of 32, the
+     loss falls; (d) per step at batch 32 in f32 and bf16 the whole step
+     (CUDA events over 10 back-to-back steps after warm-up) and its split
+     into the forward, the losses (matching, mining, losses), the
+     backward and the optimizer (CUDA events, the card held by a spin
+     until the host has issued the step, so a phase's time is the card's
+     work alone) beside the host's time to issue each, images/s, peak
+     memory, the step's TFLOP/s from the port's conv shapes against the
+     data-sheet peak, and on the host clock the Trainer's end-to-end
+     images/s over an epoch of 50 steps after a warm-up epoch and its
+     feed's alone. The training path launches no hand-written kernel: K1
+     must not be launched there.
 
 The line before the last is the card's name and power limit from
 nvidia-smi; the last is {"ok": true, "device": {...}}. TF32 is off for
@@ -30,9 +51,13 @@ convolutions and matmuls, so f32 means f32.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -54,6 +79,16 @@ RAGGED_K = (1, 63, 64, 65, 129, 1000, 1024)  # one group each
 LIMIT_GROUPS = 3                              # at K = the kernel's limit
 H100_BYTES_PER_S = 3.35e12   # HBM3, data sheet
 H100_F32_OPS_PER_S = 67e12   # f32 outside the tensor cores, data sheet
+H100_BF16_OPS_PER_S = 989e12  # dense bf16 on the tensor cores, data sheet
+TRAIN_BATCH = 32
+TRAIN_MAX_BOXES = 60
+TRAIN_STEPS = 10          # timed steps in 6d, steps of 6b and 6c
+TRAIN_CLIP = 10.0         # from-scratch runs diverge without the clip
+E2E_STEPS = 50            # the Trainer's timed epoch in 6d
+PRELOAD_MS = 250          # card spin before each step of 6d's split
+LOSS_KEYS = ("arm_loss_l", "arm_loss_c", "odm_loss_l", "odm_loss_c")
+LOG_LOSSES = re.compile(r"ARM_L Loss: (\S+) ARM_C Loss: (\S+) ODM_L Loss: "
+                        r"(\S+) ODM_C Loss: (\S+) loss: (\S+) \|\|")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -88,6 +123,244 @@ def host_ms(fn, reps: int, warmup: int = 2) -> float:
     for _ in range(reps):
         fn()
     return (time.perf_counter() - t0) * 1e3 / reps
+
+
+class Cycled:
+    """``n`` items cycling over ``base``: an epoch of real length, with the
+    same host work per item, without holding ``n`` images."""
+
+    def __init__(self, base, n: int):
+        self.base, self.n = base, n
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, i: int):
+        return self.base[i % len(self.base)]
+
+
+def train_phase(dev: torch.device) -> dict:
+    """Phase 6: the training slice on the card; returns its numbers."""
+    from refinedet_tpu_torch.config import TrainConfig
+    from refinedet_tpu_torch.data.collate import detection_collate
+    from refinedet_tpu_torch.models import build_refinedet
+    from refinedet_tpu_torch.tools.train_check import (SyntheticDetection,
+                                                       conv_flops, one_step,
+                                                       separated_batch,
+                                                       update_rel_errors)
+    from refinedet_tpu_torch.train import (Trainer, create_train_state,
+                                           make_optimizer, make_train_step,
+                                           train_losses)
+
+    out = {}
+    bf16 = torch.bfloat16
+
+    def build(dtype=torch.float32, device=dev, seed=0):
+        return build_refinedet("train", SIZE, NUM_CLASSES, dtype=dtype,
+                               device=device, seed=seed)
+
+    def on_card(batch):
+        return [torch.from_numpy(a).to(dev) for a in batch]
+
+    # -- 6a. one f32 step, card against CPU ---------------------------------
+    cfg = TrainConfig(max_boxes=TRAIN_MAX_BOXES)
+    cpu_model = build(device="cpu")
+    seed, batch = separated_batch(cpu_model, 2, TRAIN_MAX_BOXES, NUM_CLASSES,
+                                  cfg.theta, cfg.overlap_thresh)
+    gpu_model = build()
+    want, want_up = one_step(cpu_model, batch, cfg, lr=cfg.lr)
+    got, got_up = one_step(gpu_model, batch, cfg, lr=cfg.lr)
+    loss_err = max(abs(got[k] - want[k]) / abs(want[k]) for k in LOSS_KEYS)
+    rel = update_rel_errors(got_up, want_up)
+    worst = max(rel, key=rel.get)
+    log("train", f"6a: batch seed {seed}, {int(batch.valid.sum())} GT "
+        f"boxes; losses card {[round(got[k], 5) for k in LOSS_KEYS]} CPU "
+        f"{[round(want[k], 5) for k in LOSS_KEYS]}, worst rel err "
+        f"{loss_err:.3g} (limit 2e-4); positives ARM "
+        f"{got['num_pos_arm']:g}/{want['num_pos_arm']:g} ODM "
+        f"{got['num_pos_odm']:g}/{want['num_pos_odm']:g}")
+    log("train", f"6a: {len(rel)} parameter updates, worst rel L2 err "
+        f"{rel[worst]:.3g} ({worst}; limit 2e-2)")
+    check(loss_err <= 2e-4, f"6a: card and CPU losses differ by {loss_err}")
+    check(len(rel) > 50 and rel[worst] <= 2e-2,
+          f"6a: {worst}'s update differs by {rel[worst]}")
+    out["step_vs_cpu"] = {"loss_rel_err": loss_err,
+                          "update_rel_err": rel[worst], "params": len(rel)}
+    del cpu_model, gpu_model
+
+    # -- 6b. the Trainer: bf16, batch 32, 10 epochs of one step --------------
+    data = SyntheticDetection(TRAIN_BATCH, SIZE, NUM_CLASSES, seed=100)
+    cfg = TrainConfig(batch_size=TRAIN_BATCH, max_boxes=TRAIN_MAX_BOXES,
+                      max_epoch=TRAIN_STEPS, num_workers=4,
+                      grad_clip_norm=TRAIN_CLIP)
+    fixed = on_card(detection_collate([data[i] for i in range(len(data))],
+                                      TRAIN_MAX_BOXES))
+    with tempfile.TemporaryDirectory() as folder:
+        lines = []
+        live = Trainer(build(bf16), data, cfg, save_folder=folder,
+                       dataset_name="SYN", log_fn=lines.append)
+        state = live.train()
+        for line in lines:
+            log("train", f"6b: {line}")
+        losses = [float(v) for line in lines
+                  for v in LOG_LOSSES.search(line).groups()]
+        check(len(lines) == TRAIN_STEPS and state.step == TRAIN_STEPS,
+              f"6b: {len(lines)} log lines, step {state.step}")
+        check(all(np.isfinite(losses)), "6b: a logged loss is not finite")
+        for tag in ("final", TRAIN_STEPS):
+            check(os.path.exists(live.ckpt.path(tag)),
+                  f"6b: no checkpoint {tag}")
+        fresh = Trainer(build(bf16, seed=1), data, cfg, save_folder=folder,
+                        dataset_name="SYN", log_fn=lines.append)
+        rstate = fresh.resume(TRAIN_STEPS)
+    check(rstate.step == state.step, f"6b: resumed step {rstate.step}")
+    for (k, a), b in zip(live.model.net.state_dict().items(),
+                         fresh.model.net.state_dict().values()):
+        check(torch.equal(a, b), f"6b: resumed weight {k} differs")
+    bufs = [(s["momentum_buffer"], r["momentum_buffer"]) for s, r in zip(
+        live.optimizer.state_dict()["state"].values(),
+        fresh.optimizer.state_dict()["state"].values())]
+    check(len(bufs) > 50 and all(torch.equal(a, b) for a, b in bufs),
+          "6b: resumed momentum buffers differ")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        state, _ = live.train_step(state, *fixed)
+        rstate, _ = fresh.train_step(rstate, *fixed)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    diff = max(float((a.float() - b.float()).abs().max()) for a, b in zip(
+        live.model.net.state_dict().values(),
+        fresh.model.net.state_dict().values()))
+    log("train", f"6b: {TRAIN_STEPS} steps logged, all finite; resumed "
+        f"epoch {TRAIN_STEPS}: step {rstate.step - 1}, weights and "
+        f"{len(bufs)} momentum buffers exact; one more step from each "
+        f"(cuDNN deterministic): max |live - resumed| {diff:g}")
+    check(diff == 0.0, "6b: the step from the resumed state differs")
+    del live, fresh, state, rstate
+
+    # -- 6c. learning: 10 f32 steps on one batch -----------------------------
+    model = build()
+    opt = make_optimizer(model.net.parameters(), lambda t: 1e-3,
+                         grad_clip_norm=TRAIN_CLIP)
+    step = make_train_step(model, opt, cfg)
+    state = create_train_state(model, opt)
+    falls = []
+    for _ in range(TRAIN_STEPS):
+        state, metrics = step(state, *fixed)
+        falls.append(float(metrics["loss"]))
+    log("train", f"6c: loss over {TRAIN_STEPS} f32 steps on one batch of "
+        f"{TRAIN_BATCH}: {[round(v, 2) for v in falls]}")
+    check(all(np.isfinite(falls)) and falls[-1] < falls[0],
+          "6c: the loss did not fall")
+    out["learning_losses"] = falls
+    del model, opt, step, state
+
+    # -- 6d. timings -----------------------------------------------------------
+    flops = 3 * conv_flops(build(device="cpu").net,
+                           torch.zeros(TRAIN_BATCH, SIZE, SIZE, 3))
+    log("time", f"train step work: {flops / 1e12:.4f} TFLOP per batch of "
+        f"{TRAIN_BATCH} (convolutions: forward, and 2x for backward)")
+    e2e_data = Cycled(SyntheticDetection(3 * TRAIN_BATCH, SIZE, NUM_CLASSES,
+                                         seed=200), E2E_STEPS * TRAIN_BATCH)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10 ** 7)
+    end.record()
+    torch.cuda.synchronize()
+    preload_cycles = int(10 ** 7 / start.elapsed_time(end) * PRELOAD_MS)
+    for dtype, peak in ((torch.float32, H100_F32_OPS_PER_S),
+                        (bf16, H100_BF16_OPS_PER_S)):
+        name = "f32" if dtype == torch.float32 else "bf16"
+        model = build(dtype)
+        opt = make_optimizer(model.net.parameters(), lambda t: 1e-3,
+                             grad_clip_norm=TRAIN_CLIP)
+        step = make_train_step(model, opt, cfg)
+        state = create_train_state(model, opt)
+        for _ in range(3):
+            state, _ = step(state, *fixed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = cuda_ms(lambda: step(state, *fixed), TRAIN_STEPS, 0)
+        peak_mem = torch.cuda.max_memory_allocated()
+        # Each phase's device time (CUDA events) and the host's time to
+        # launch it (no sync inside). The card first spins for PRELOAD_MS,
+        # so the host has issued the whole step before the card reaches
+        # it and the events time the card's work, not waits for the host.
+        split, launch = np.zeros(4), np.zeros(4)
+        for _ in range(TRAIN_STEPS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            model.net.train()
+            opt.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(preload_cycles)
+            t = [time.perf_counter()]
+            ev[0].record()
+            heads = model.raw_forward(fixed[0])
+            ev[1].record()
+            t.append(time.perf_counter())
+            loss, _ = train_losses(model, heads, *fixed[1:], cfg)
+            ev[2].record()
+            t.append(time.perf_counter())
+            loss.backward()
+            ev[3].record()
+            t.append(time.perf_counter())
+            opt.apply_gradients(0)
+            ev[4].record()
+            t.append(time.perf_counter())
+            torch.cuda.synchronize()
+            split += [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+            launch += np.diff(t) * 1e3
+        split /= TRAIN_STEPS
+        launch /= TRAIN_STEPS
+        tflops = flops / (step_ms / 1e3) / 1e12
+        # The Trainer over an epoch of E2E_STEPS steps, after a warm-up
+        # epoch; then the feed alone (the loader's collate, target check
+        # and pinned copy, no step) over one more epoch.
+        trainer = Trainer(model, e2e_data, dataclasses.replace(
+            cfg, max_epoch=2, num_workers=8), log_fn=lambda line: None)
+        tstate = trainer.train(max_epochs=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train(tstate, start_epoch=1, max_epochs=1)
+        torch.cuda.synchronize()
+        e2e_ips = len(e2e_data) / (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        fed = sum(sb.wait().images.shape[0] for sb in trainer.loader)
+        torch.cuda.synchronize()
+        feed_ips = fed / (time.perf_counter() - t0)
+        res = {"step_ms": step_ms, "forward_ms": float(split[0]),
+               "losses_ms": float(split[1]),
+               "backward_ms": float(split[2]),
+               "optimizer_ms": float(split[3]),
+               "host_launch_ms": [float(v) for v in launch],
+               "images_per_s": TRAIN_BATCH * 1e3 / step_ms,
+               "trainer_images_per_s": e2e_ips,
+               "feed_images_per_s": feed_ips,
+               "peak_mem_bytes": peak_mem, "tflops": tflops,
+               "peak_tflops": peak / 1e12,
+               "share_of_peak": tflops / (peak / 1e12)}
+        out[name] = res
+        log("time", f"train {name} batch {TRAIN_BATCH}: step {step_ms:.2f} "
+            f"ms = forward {split[0]:.2f} + losses {split[1]:.2f} + "
+            f"backward {split[2]:.2f} + optimizer {split[3]:.2f} ms (split "
+            f"timed apart, card preloaded {PRELOAD_MS} ms, sum "
+            f"{split.sum():.2f}); {res['images_per_s']:.1f} images/s; "
+            f"peak memory {peak_mem / 2**30:.2f} GiB; {tflops:.1f} TFLOP/s "
+            f"of {peak / 1e12:g} peak ({100 * res['share_of_peak']:.1f}%)")
+        log("time", f"train {name}: host time to launch forward "
+            f"{launch[0]:.2f}, losses {launch[1]:.2f}, backward "
+            f"{launch[2]:.2f}, optimizer {launch[3]:.2f} ms (sum "
+            f"{launch.sum():.2f})")
+        log("time", f"train {name}: Trainer end to end {e2e_ips:.1f} "
+            f"images/s (host clock, an epoch of {E2E_STEPS} steps after a "
+            f"warm-up epoch); its feed alone {feed_ips:.1f} images/s")
+        del model, opt, step, state, trainer, tstate, heads, loss
+        torch.cuda.empty_cache()
+    out["step_tflop"] = flops / 1e12
+    return out
 
 
 def main() -> int:
@@ -355,8 +628,18 @@ def main() -> int:
     log("time", "library_ms: n/a, no single PyTorch call computes greedy "
         "NMS (torchvision is absent, and its NMS would be a library "
         "kernel)")
-    log("time", f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"timings": timings}), flush=True)
+
+    # -- 6. the training slice ----------------------------------------------
+    del model, m, serve_fn, fn, engine, server, heads, h
+    torch.cuda.empty_cache()
+    nms_cuda.nms_sweep.launches = 0
+    train = train_phase(dev)
+    check(nms_cuda.nms_sweep.launches == 0,
+          "the training path launched K1")
+    log("train", "K1 launches on the training path: 0")
+    log("time", f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"train": train}), flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "nms_sweep",

@@ -1,16 +1,25 @@
-"""Model / anchor / detection configuration.
+"""Model / anchor / training / detection configuration.
 
 The port's own copy of ``refinedet_tpu/config.py``: the anchor tables
-(``voc_refinedet``, ``coco_refinedet``) and the post-processing knobs
-(``DetectConfig``). Plain dataclasses, no framework imports.
+(``voc_refinedet``, ``coco_refinedet``), the training recipe
+(``TrainConfig``), the post-processing knobs (``DetectConfig``) and the
+dataset roots and means the train CLI defaults to. Plain dataclasses, no
+framework imports.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Tuple
 
-# Per-channel pixel mean (BGR) that serving inputs are centred with.
+HOME = os.getcwd()
+COCOroot = os.path.join(HOME, "data/SSDD/SSDD_coco")
+VOC_ROOT = os.path.join(HOME, "data/VOCdevkit/")
+
+# Per-channel pixel mean (BGR). The SAR-ship (COCO) recipe uses the SSDD
+# mean on all channels; VOC and serving inputs use (104, 117, 123).
+MEANS = (98.13131, 98.13131, 98.13131)
 VOC_MEANS = (104, 117, 123)
 
 
@@ -88,6 +97,33 @@ coco_refinedet = {
     "512": _refinedet_cfg(512, 2, "RefineDet_COCO_512"),
     "896": _refinedet_cfg(896, 2, "RefineDet_COCO_896"),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training-recipe knobs (the train CLI's defaults). The compute dtype
+    is the model's own (``build_refinedet(..., dtype=)``), so it has no
+    field here; the pixel mean belongs to the dataset's transform."""
+
+    batch_size: int = 32
+    lr: float = 1e-3
+    momentum: float = 0.9
+    weight_decay: float = 5e-4
+    gamma: float = 0.1
+    max_epoch: int = 300
+    warmup_epochs: int = 5
+    warmup_init_lr: float = 1e-6
+    negpos_ratio: int = 3
+    overlap_thresh: float = 0.5
+    theta: float = 0.01  # ARM objectness filter for ODM positives
+    max_boxes: int = 60  # static per-image GT padding
+    grad_clip_norm: float = 0.0  # 0 = off (reference has no clipping)
+    ema_decay: float = 0.0  # >0: keep an EMA of params (0 = off, like ref)
+    on_device_augment: bool = False  # fuse SSD augmentation into the step
+    num_workers: int = 8
+    worker_processes: bool = False  # spawn-based workers (vs threads)
+    seed: int = 0
+    spatial_shards: int = 1  # >1: shard image H over devices
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,151 @@
+"""Helpers that hold the training slice on the card against the CPU.
+
+Used by ``chip_smoke.py`` (phase 6) and ``tests/test_torch_port_gpu.py``:
+
+  * ``SyntheticDetection``: an in-memory dataset made from a numpy seed
+    (mean-subtracted RGB images of pixel noise with 1-8 bright boxes each,
+    normalized targets), so training runs without cv2 or image files;
+  * ``separated_batch``: the first batch of a seed sequence on which a
+    card-vs-CPU comparison of one step is well posed, i.e. no ODM match
+    sits so close to a decision that the two devices' last-ulp
+    differences in the heads could flip it;
+  * ``one_step``: one full train step from the model's current weights,
+    returning the metrics and each parameter's update;
+  * ``conv_flops``: the forward's convolution FLOPs, counted from the
+    port's own conv shapes.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterable, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from refinedet_tpu_torch.boxes.codec import decode
+from refinedet_tpu_torch.boxes.geometry import jaccard
+from refinedet_tpu_torch.config import VOC_MEANS, TrainConfig
+from refinedet_tpu_torch.data.collate import Batch, detection_collate
+from refinedet_tpu_torch.train.train_step import (create_train_state,
+                                                  make_optimizer,
+                                                  make_train_step)
+
+# A match decided by less than this (IoU against the threshold, or a GT's
+# best anchor against its second best) could differ between devices.
+MARGIN = 1e-4
+
+
+class SyntheticDetection:
+    """``n`` images of ``size``², made once from ``seed``; item i is
+    (image [size, size, 3] float32 RGB minus ``mean``, boxes [k, 4]
+    normalized point form, labels [k] int32 in 1..num_classes-1), k in
+    1..8."""
+
+    def __init__(self, n: int, size: int = 320, num_classes: int = 21,
+                 seed: int = 0, mean=VOC_MEANS):
+        self.name = f"synthetic{n}"
+        self.items = []
+        mean = np.asarray(mean, np.float32)
+        for i in range(n):
+            rng = np.random.default_rng([seed, i])
+            img = rng.integers(0, 80, (size, size, 3)).astype(np.float32)
+            k = int(rng.integers(1, 9))
+            wh = rng.uniform(0.08, 0.5, (k, 2))
+            xy = rng.uniform(0.0, 1.0 - wh)
+            boxes = np.concatenate([xy, xy + wh], 1).astype(np.float32)
+            for x1, y1, x2, y2 in (boxes * size).astype(int):
+                img[y1:y2, x1:x2] = 220.0
+            labels = rng.integers(1, num_classes, k).astype(np.int32)
+            self.items.append((np.ascontiguousarray((img - mean)[..., ::-1]),
+                               boxes, labels))
+
+    def __len__(self) -> int:
+        return len(self.items)
+
+    def __getitem__(self, i: int):
+        return self.items[i]
+
+
+def separated_batch(cpu_model, batch_size: int, max_boxes: int,
+                    num_classes: int, theta: float, threshold: float,
+                    seeds: Iterable[int] = range(40)) -> Tuple[int, Batch]:
+    """The first seed whose batch (``SyntheticDetection(batch_size, seed)``)
+    is separated by ``MARGIN`` on ``cpu_model``'s heads: every ODM IoU
+    away from ``threshold``, every valid GT's best ODM anchor ahead of its
+    second best, every ARM objectness away from ``theta``. ARM matching
+    needs no check: it depends on the priors only, through IEEE-exact
+    elementwise ops, so it is bitwise equal on both devices."""
+    for seed in seeds:
+        ds = SyntheticDetection(batch_size, cpu_model.size, num_classes,
+                                seed)
+        batch = detection_collate([ds[i] for i in range(len(ds))],
+                                  max_boxes)
+        with torch.no_grad():
+            arm_loc, arm_conf, _, _ = cpu_model.raw_forward(
+                torch.from_numpy(batch.images))
+            anchors = decode(arm_loc, cpu_model.priors, cpu_model.cfg.variance)
+            obj = torch.softmax(arm_conf, -1)[..., 1]
+        if float((obj - theta).abs().min()) <= MARGIN:
+            continue
+        ok = True
+        for b in range(batch_size):
+            gt = torch.from_numpy(batch.boxes[b][batch.valid[b]])
+            iou = jaccard(gt, anchors[b])
+            top2 = iou.topk(2, dim=1).values
+            if (float((iou - threshold).abs().min()) <= MARGIN
+                    or float((top2[:, 0] - top2[:, 1]).min()) <= MARGIN):
+                ok = False
+                break
+        if ok:
+            return seed, batch
+    raise RuntimeError("no separated batch among the seeds tried")
+
+
+def one_step(model, batch: Batch, train_cfg: TrainConfig,
+             lr: float) -> Tuple[Dict[str, float], Dict[str, torch.Tensor]]:
+    """One train step of ``model`` (its weights are updated in place) at
+    constant ``lr``: the metrics as floats, and each parameter's update
+    (after minus before) as a CPU tensor."""
+    before = {k: v.detach().cpu().clone()
+              for k, v in model.net.state_dict().items()}
+    opt = make_optimizer(model.net.parameters(), lambda t: lr,
+                         train_cfg.momentum, train_cfg.weight_decay,
+                         train_cfg.grad_clip_norm)
+    step = make_train_step(model, opt, train_cfg)
+    tensors = [torch.from_numpy(a).to(model.device) for a in batch]
+    _, metrics = step(create_train_state(model, opt), *tensors)
+    after = model.net.state_dict()
+    return ({k: float(v) for k, v in metrics.items()},
+            {k: after[k].detach().cpu() - v for k, v in before.items()})
+
+
+def update_rel_errors(got: Dict[str, torch.Tensor],
+                      want: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """Per parameter, ||got - want|| / ||want||."""
+    return {k: float((got[k] - w).norm() / (w.norm() + 1e-12))
+            for k, w in want.items()}
+
+
+def conv_flops(net: nn.Module, images: torch.Tensor) -> int:
+    """FLOPs of the convolutions of one forward of ``net`` on ``images``:
+    2·Cin·Cout·k²·Hout·Wout per image for a conv, 2·Cin·Cout·k²·Hin·Win
+    for a transposed conv (each input pixel scatters a k² patch)."""
+    total = 0
+
+    def hook(mod, inputs, out):
+        nonlocal total
+        kh, kw = mod.kernel_size
+        per = 2 * mod.in_channels * mod.out_channels * kh * kw // mod.groups
+        x = inputs[0] if isinstance(mod, nn.ConvTranspose2d) else out
+        total += per * x.shape[0] * x.shape[2] * x.shape[3]
+
+    handles = [m.register_forward_hook(hook) for m in net.modules()
+               if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d))]
+    try:
+        with torch.no_grad():
+            net(images)
+    finally:
+        for h in handles:
+            h.remove()
+    return total

@@ -1,0 +1,170 @@
+"""RefineDet training CLI: ``python -m refinedet_tpu_torch.train``.
+
+The flags and defaults of the JAX package's ``train_refinedet.py`` (the
+reference's ``train_refinedet.py``), plus ``--device`` (the card unless
+``--device cpu``). Flow: dataset + SSDAugmentation -> build_refinedet ->
+optional pretrained-VGG backbone -> Trainer (warmup + step lr, SGD with
+momentum and weight decay, checkpoints every 10 epochs, 5 after 200) ->
+``<save_folder>/log.txt`` in the reference's log format.
+
+Flags of features the port does not have yet raise an error that names
+the ROADMAP.md item bringing them; none is ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import List, Optional
+
+import torch
+
+from refinedet_tpu_torch import config as C
+from refinedet_tpu_torch.config import TrainConfig
+from refinedet_tpu_torch.data import (COCODetection, SSDAugmentation,
+                                      VOCDetection)
+from refinedet_tpu_torch.device import resolve_device
+from refinedet_tpu_torch.models import build_refinedet
+from refinedet_tpu_torch.train.checkpoints import CheckpointManager
+from refinedet_tpu_torch.train.trainer import Trainer
+from refinedet_tpu_torch.utils import logger as log_util
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(
+        description="RefineDet training (PyTorch/CUDA port)")
+    p.add_argument("--dataset", default="COCO", choices=["VOC", "COCO"])
+    p.add_argument("--input_size", default="512",
+                   choices=["320", "512", "896"],
+                   help="896 is the five-source large-input variant")
+    p.add_argument("--dataset_root", default=None,
+                   help="VOCdevkit or SSDD_coco root")
+    p.add_argument("--basenet", default=None,
+                   help="pretrained VGG .pth (vgg16_reducedfc)")
+    p.add_argument("--batch_size", default=32, type=int)
+    p.add_argument("--resume", default=None,
+                   help="checkpoint path to resume from")
+    p.add_argument("--resume_epoch", default=0, type=int)
+    p.add_argument("--num_workers", default=8, type=int)
+    p.add_argument("--worker_processes", action="store_true",
+                   help="load/augment in spawned worker processes instead "
+                        "of threads")
+    p.add_argument("--lr", "--learning-rate", default=1e-3, type=float)
+    p.add_argument("--momentum", default=0.9, type=float)
+    p.add_argument("--weight_decay", default=5e-4, type=float)
+    p.add_argument("--gamma", default=0.1, type=float)
+    p.add_argument("--max_epoch", default=300, type=int)
+    p.add_argument("--ngpu", default=None, type=int,
+                   help="number of GPUs (one until multi-GPU is ported)")
+    p.add_argument("--save_folder", default="weights/")
+    p.add_argument("--seed", default=0, type=int)
+    p.add_argument("--bn", action="store_true",
+                   help="use the BatchNorm model variant")
+    p.add_argument("--dtype", default="bfloat16",
+                   choices=["float32", "bfloat16"],
+                   help="compute dtype of the convolutions")
+    p.add_argument("--on_device_augment", action="store_true",
+                   help="run the SSD augmentation on the device")
+    p.add_argument("--staging_size", default=0, type=int,
+                   help="staging canvas for --on_device_augment")
+    p.add_argument("--grad_clip", default=0.0, type=float)
+    p.add_argument("--ema_decay", default=0.0, type=float,
+                   help="keep an EMA of the weights for serving (0 = off); "
+                        "checkpoints then carry it")
+    p.add_argument("--spatial_shards", default=1, type=int,
+                   help="shard image height over devices")
+    p.add_argument("--visdom", "--live_plot", dest="live_plot",
+                   action="store_true", help="live loss plot")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; the card unless 'cpu' is asked for")
+    return p.parse_args(argv)
+
+
+def refuse_unported(args: argparse.Namespace) -> None:
+    """Raise for a flag whose feature the port does not have yet."""
+    unported = [
+        (args.bn, "--bn", "item 4 (BN variant, 512 and 896)"),
+        (args.input_size == "896", "--input_size 896",
+         "item 4 (BN variant, 512 and 896)"),
+        (args.on_device_augment or args.staging_size,
+         "--on_device_augment/--staging_size",
+         "item 2 (on-device augmentation)"),
+        (args.spatial_shards > 1, "--spatial_shards > 1",
+         "item 5 (multi-GPU)"),
+        (args.ngpu is not None and args.ngpu > 1, "--ngpu > 1",
+         "item 5 (multi-GPU)"),
+        (args.live_plot, "--visdom", "item 8 (the rest: utils/plot)"),
+    ]
+    for asked, flag, item in unported:
+        if asked:
+            raise NotImplementedError(
+                f"{flag} is not ported yet: ROADMAP.md §1, {item}")
+
+
+def load_basenet(net: torch.nn.Module, path: str) -> None:
+    """Load a ``vgg16_reducedfc`` backbone file (a bare VGG ModuleList
+    state_dict, ``0.weight`` ... ``33.bias``) into ``net.vgg``, strictly."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if "state_dict" in state:
+        state = state["state_dict"]
+    state = {k[len("module."):] if k.startswith("module.") else k: v
+             for k, v in state.items()}
+    net.vgg.load_state_dict(state, strict=True)
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    args = parse_args(argv)
+    refuse_unported(args)
+    device = resolve_device(args.device)
+    os.makedirs(args.save_folder, exist_ok=True)
+    log_util.install(os.path.join(args.save_folder, "log.txt"))
+
+    size = int(args.input_size)
+    means = C.VOC_MEANS if args.dataset == "VOC" else C.MEANS
+    transform = SSDAugmentation(size, means)
+    if args.dataset == "VOC":
+        root = args.dataset_root or C.VOC_ROOT
+        dataset = VOCDetection(root, transform=transform, seed=args.seed)
+        num_classes = 21
+    else:
+        root = args.dataset_root or C.COCOroot
+        dataset = COCODetection(root, [("sarship", "train")], transform,
+                                seed=args.seed)
+        num_classes = dataset.num_classes
+
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    model = build_refinedet("train", size, num_classes, dtype=dtype,
+                            device=device, seed=args.seed)
+    cfg = TrainConfig(
+        batch_size=args.batch_size, lr=args.lr, momentum=args.momentum,
+        weight_decay=args.weight_decay, gamma=args.gamma,
+        max_epoch=args.max_epoch, num_workers=args.num_workers,
+        worker_processes=args.worker_processes, seed=args.seed,
+        grad_clip_norm=args.grad_clip, ema_decay=args.ema_decay)
+    trainer = Trainer(model, dataset, cfg, save_folder=args.save_folder,
+                      dataset_name=args.dataset)
+
+    start_epoch = 0
+    state = None
+    if args.resume_epoch > 0:
+        state = trainer.resume(args.resume_epoch)
+        start_epoch = args.resume_epoch
+        print(f"resumed from epoch {start_epoch}")
+    elif args.resume:
+        state = trainer.load_state(
+            CheckpointManager.restore_path(args.resume), args.resume)
+        start_epoch = state.step // trainer.epoch_size
+        print(f"resumed from {args.resume} (epoch {start_epoch})")
+    elif args.basenet:
+        load_basenet(model.net, args.basenet)
+        state = trainer.init_state()  # the EMA starts from these weights
+        print(f"loaded pretrained backbone from {args.basenet}")
+
+    print("Loading the dataset...")
+    print(f"Training RefineDet{size} on {dataset.name} ({len(dataset)} "
+          f"images, {model.device})")
+    trainer.train(state, start_epoch=start_epoch)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,6 @@
-"""Card-only tests of the port: kernel K1 against its plain version, and
-the CUDA serving path against the CPU one.
+"""Card-only tests of the port: kernel K1 against its plain version, the
+CUDA serving path against the CPU one, and the training slice (matcher,
+losses, one train step, Trainer resume) on the card against the CPU.
 
 They skip without a CUDA card. On the card::
 
@@ -12,14 +13,27 @@ import numpy as np
 import pytest
 import torch
 
+import os
+
 from refinedet_tpu_torch.boxes.geometry import iou_pairwise
+from refinedet_tpu_torch.boxes.matcher import refine_match_batch
+from refinedet_tpu_torch.boxes.codec import decode
+from refinedet_tpu_torch.config import TrainConfig
+from refinedet_tpu_torch.data.collate import detection_collate
 from refinedet_tpu_torch.detect.detection import detect_refinedet
 from refinedet_tpu_torch.models import build_refinedet
 from refinedet_tpu_torch.ops import nms_cuda
 from refinedet_tpu_torch.ops.nms import nms_sweep_reference
+from refinedet_tpu_torch.losses import refinedet_multibox_loss
 from refinedet_tpu_torch.serve.export import (fused_nms_settings,
                                               fused_postprocess,
                                               make_serving_fn)
+from refinedet_tpu_torch.tools.train_check import (SyntheticDetection,
+                                                   one_step,
+                                                   separated_batch,
+                                                   update_rel_errors)
+from refinedet_tpu_torch.train import (Trainer, create_train_state,
+                                       make_optimizer, make_train_step)
 
 pytestmark = pytest.mark.gpu
 
@@ -143,3 +157,148 @@ def test_cuda_serving_matches_cpu(cuda):
     # And the numpy serving function end to end on the card.
     dets = make_serving_fn(gpu_model, None, fused_nms={})(img.numpy())
     assert dets.shape == (2, 2, 200, 5) and np.isfinite(dets).all()
+
+
+def _heads_and_targets(seed, p, c=4, b=2, m=8):
+    rng = np.random.RandomState(seed)
+    heads = [(rng.randn(b, p, 4) * 0.5).astype(np.float32),
+             rng.randn(b, p, 2).astype(np.float32),
+             (rng.randn(b, p, 4) * 0.5).astype(np.float32),
+             rng.randn(b, p, c).astype(np.float32)]
+    boxes = np.zeros((b, m, 4), np.float32)
+    labels = np.zeros((b, m), np.int32)
+    valid = np.zeros((b, m), bool)
+    for i in range(b):
+        n = rng.randint(2, m)
+        xy = rng.uniform(0, 0.7, (n, 2))
+        boxes[i, :n] = np.hstack([xy, xy + rng.uniform(0.05, 0.3, (n, 2))])
+        labels[i, :n] = rng.randint(1, c, n)
+        valid[i, :n] = True
+    return heads, (boxes, labels, valid)
+
+
+def _assert_odm_separated(arm_loc, targets, priors):
+    """No ODM IoU within 1e-6 of the threshold and each GT's best decoded
+    anchor ahead of its second best by more than 1e-6, so the two devices'
+    last-ulp differences in exp cannot flip a match."""
+    anchors = decode(torch.from_numpy(arm_loc), priors, (0.1, 0.2))
+    boxes, _, valid = targets
+    for b in range(len(boxes)):
+        iou = iou_pairwise(torch.from_numpy(boxes[b][valid[b]]), anchors[b])
+        top2 = iou.topk(2, dim=1).values
+        assert float((iou - 0.5).abs().min()) > 1e-6
+        assert float((top2[:, 0] - top2[:, 1]).min()) > 1e-6
+
+
+@pytest.mark.parametrize("use_arm", [False, True], ids=["arm", "odm"])
+def test_matcher_and_loss_on_card_match_cpu(cuda, use_arm):
+    priors = build_refinedet("train", 320, 4, device="cpu").priors
+    heads, targets = _heads_and_targets(0, len(priors))
+    _assert_odm_separated(heads[0], targets, priors)
+    cpu = [torch.from_numpy(x) for x in (*heads, priors.numpy(), *targets)]
+    results = []
+    for dev in ("cpu", cuda):
+        t = [x.to(dev, copy=True) for x in cpu]
+        for x in t[:4]:
+            x.requires_grad_(True)
+        match = refine_match_batch(*t[5:], t[4], (0.1, 0.2), 0.5,
+                                   arm_loc=t[0].detach() if use_arm else None)
+        out = refinedet_multibox_loss(tuple(t[:5]), *t[5:],
+                                      num_classes=4 if use_arm else 2,
+                                      use_arm=use_arm)
+        (out.loss_l + out.loss_c).backward()
+        results.append((match, out, [x.grad for x in t[:4]]))
+    (cm, co, cg), (gm, go, gg) = results
+    # IEEE-exact elementwise ops: the ARM matching is bitwise equal; the
+    # ODM decode's exp may differ in the last ulp.
+    assert torch.equal(gm.conf_t.cpu(), cm.conf_t)
+    torch.testing.assert_close(gm.loc_t.cpu(), cm.loc_t, rtol=1e-5,
+                               atol=1e-5)
+    assert float(co.num_pos) > 0 and float(go.num_pos) == float(co.num_pos)
+    for a, b in zip(go[:2], co[:2]):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=1e-5,
+                                   atol=0)
+    for a, b in zip(gg, cg):
+        if b is None:
+            assert a is None
+            continue
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4,
+                                   atol=1e-4 * float(b.abs().max()))
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One f32 step at batch 2 (VOC, 21 classes, max_boxes 60) from the
+    same weights and batch: losses rtol 2e-4, each parameter's update a
+    relative L2 norm of 2e-2."""
+    cfg = TrainConfig(max_boxes=60)
+    cpu_model = build_refinedet("train", 320, 21, device="cpu", seed=0)
+    _, batch = separated_batch(cpu_model, 2, 60, 21, cfg.theta,
+                               cfg.overlap_thresh)
+    gpu_model = build_refinedet("train", 320, 21, device=cuda, seed=0)
+    want, want_up = one_step(cpu_model, batch, cfg, cfg.lr)
+    got, got_up = one_step(gpu_model, batch, cfg, cfg.lr)
+    for k in ("arm_loss_l", "arm_loss_c", "odm_loss_l", "odm_loss_c"):
+        np.testing.assert_allclose(got[k], want[k], rtol=2e-4, err_msg=k)
+    rel = update_rel_errors(got_up, want_up)
+    assert len(rel) > 50 and max(rel.values()) < 2e-2, max(rel.items(),
+                                                            key=lambda kv:
+                                                            kv[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_step_never_waits_for_the_card(cuda, dtype):
+    """The step (forward, matching, losses, backward, optimizer, EMA)
+    makes no blocking copy and no synchronization: the host stays ahead
+    of the card. Only reading the metrics waits."""
+    model = build_refinedet("train", 320, 21, device=cuda, dtype=dtype)
+    data = SyntheticDetection(2, seed=4)
+    batch = [torch.from_numpy(a).to(cuda) for a in detection_collate(
+        [data[i] for i in range(2)], 60)]
+    cfg = TrainConfig(max_boxes=60, grad_clip_norm=10.0, ema_decay=0.99)
+    opt = make_optimizer(model.net.parameters(), lambda t: 1e-3,
+                         grad_clip_norm=10.0)
+    step = make_train_step(model, opt, cfg)
+    state = create_train_state(model, opt, ema=True)
+    state, _ = step(state, *batch)  # warm-up: lazy init may sync once
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            state, metrics = step(state, *batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.isfinite(float(metrics["loss"]))
+
+
+def test_trainer_resume_on_card(cuda, tmp_path):
+    data = SyntheticDetection(4, seed=3)
+    cfg = TrainConfig(batch_size=2, max_boxes=60, max_epoch=10,
+                      num_workers=2, grad_clip_norm=10.0)
+
+    def trainer(seed):
+        return Trainer(build_refinedet("train", 320, 21, device=cuda,
+                                       seed=seed), data, cfg,
+                       save_folder=str(tmp_path), log_fn=lambda line: None)
+
+    live = trainer(0)
+    state = live.train()
+    assert state.step == 20
+    assert os.path.exists(live.ckpt.path(10))
+    assert os.path.exists(live.ckpt.path("final"))
+    fresh = trainer(1)
+    rstate = fresh.resume(10)
+    assert rstate.step == 20
+    for a, b in zip(live.optimizer.state_dict()["state"].values(),
+                    fresh.optimizer.state_dict()["state"].values()):
+        assert torch.equal(a["momentum_buffer"], b["momentum_buffer"])
+    fixed = [torch.from_numpy(a).to(cuda) for a in detection_collate(
+        [data[i] for i in range(2)], 60)]
+    torch.backends.cudnn.deterministic = True
+    try:
+        live.train_step(state, *fixed)
+        fresh.train_step(rstate, *fixed)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    for (k, a), b in zip(live.model.net.state_dict().items(),
+                         fresh.model.net.state_dict().values()):
+        assert torch.equal(a, b), k

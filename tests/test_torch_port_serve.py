@@ -3,6 +3,7 @@ front end of ``refinedet_tpu_torch.serve``, on the CPU; and the port's
 import boundary (torch, numpy and the standard library only)."""
 
 import ast
+import subprocess
 import sys
 import threading
 from pathlib import Path
@@ -173,5 +174,26 @@ def test_port_imports_no_jax():
     for path in files:
         for name in _imports(path):
             root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "flax", "refinedet_tpu",
-                                "tools"), f"{path} imports {name}"
+            assert root not in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                "refinedet_tpu", "tools"), \
+                f"{path} imports {name}"
+
+
+def test_port_imports_without_cv2():
+    """Every module of the port imports where cv2 is missing (the card
+    machine has none): the data modules guard their cv2 import."""
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "sys.modules['cv2'] = None\n"
+        "import refinedet_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "'refinedet_tpu_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "from refinedet_tpu_torch.data import augmentations\n"
+        "assert augmentations.cv2 is None\n"
+        "print(len(names))\n")
+    run = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-3000:]
+    assert int(run.stdout.split()[-1]) > 30
