@@ -42,7 +42,21 @@ non-zero exit and no result line:
      data-sheet peak, and on the host clock the Trainer's end-to-end
      images/s over an epoch of 50 steps after a warm-up epoch and its
      feed's alone. The training path launches no hand-written kernel: K1
-     must not be launched there.
+     must not be launched there;
+  7. the eval slice, bf16, batch 8, through ``eval.Evaluator`` and
+     ``cli_coco.make_loader``, on in-memory eval sets made from a numpy
+     seed (``tools/eval_check.py``): (a) VOC path, RefineDet320, 21
+     classes, 6b's ``final`` checkpoint, 128 images, ``nms_top_k`` 300,
+     IoU 0.45, no +1, VOC07 mAP; (b) SSDD path, RefineDet512, 2 classes,
+     seed-0 weights saved as a bare reference-key ``.pth``, 64 images,
+     ``top_k`` 1000, ``keep_top_k`` 500, IoU 0.49, +1 areas, the 12 COCO
+     stats. K1 must launch exactly once per batch. (c) A second run of
+     each records every batch's heads: the plain post-process on them
+     must equal the kernel path's exactly. (d) Per run: the Evaluator's
+     FPS and p50 batch latency, and the whole run's images/s (host
+     clock), forward and post-process ms per batch (CUDA events), K1 at
+     the eval shape (graph replay) beside its plain version and bound,
+     the host seconds of the AP, and the staging's images/s alone.
 
 The line before the last is the card's name and power limit from
 nvidia-smi; the last is {"ok": true, "device": {...}}. TF32 is off for
@@ -86,6 +100,10 @@ TRAIN_STEPS = 10          # timed steps in 6d, steps of 6b and 6c
 TRAIN_CLIP = 10.0         # from-scratch runs diverge without the clip
 E2E_STEPS = 50            # the Trainer's timed epoch in 6d
 PRELOAD_MS = 250          # card spin before each step of 6d's split
+EVAL_BATCH = 8
+VOC_EVAL_IMAGES = 128     # 7a: 16 batches, G = 8 * 20, K = 300
+SSDD_EVAL_IMAGES = 64     # 7b: 8 batches, G = 8, K = 1000
+SSDD_SIZE = 512
 LOSS_KEYS = ("arm_loss_l", "arm_loss_c", "odm_loss_l", "odm_loss_c")
 LOG_LOSSES = re.compile(r"ARM_L Loss: (\S+) ARM_C Loss: (\S+) ODM_L Loss: "
                         r"(\S+) ODM_C Loss: (\S+) loss: (\S+) \|\|")
@@ -139,8 +157,9 @@ class Cycled:
         return self.base[i % len(self.base)]
 
 
-def train_phase(dev: torch.device) -> dict:
-    """Phase 6: the training slice on the card; returns its numbers."""
+def train_phase(dev: torch.device, folder: str) -> dict:
+    """Phase 6: the training slice on the card; returns its numbers. 6b's
+    Trainer writes its checkpoints to ``folder``."""
     from refinedet_tpu_torch.config import TrainConfig
     from refinedet_tpu_torch.data.collate import detection_collate
     from refinedet_tpu_torch.models import build_refinedet
@@ -195,24 +214,23 @@ def train_phase(dev: torch.device) -> dict:
                       grad_clip_norm=TRAIN_CLIP)
     fixed = on_card(detection_collate([data[i] for i in range(len(data))],
                                       TRAIN_MAX_BOXES))
-    with tempfile.TemporaryDirectory() as folder:
-        lines = []
-        live = Trainer(build(bf16), data, cfg, save_folder=folder,
-                       dataset_name="SYN", log_fn=lines.append)
-        state = live.train()
-        for line in lines:
-            log("train", f"6b: {line}")
-        losses = [float(v) for line in lines
-                  for v in LOG_LOSSES.search(line).groups()]
-        check(len(lines) == TRAIN_STEPS and state.step == TRAIN_STEPS,
-              f"6b: {len(lines)} log lines, step {state.step}")
-        check(all(np.isfinite(losses)), "6b: a logged loss is not finite")
-        for tag in ("final", TRAIN_STEPS):
-            check(os.path.exists(live.ckpt.path(tag)),
-                  f"6b: no checkpoint {tag}")
-        fresh = Trainer(build(bf16, seed=1), data, cfg, save_folder=folder,
-                        dataset_name="SYN", log_fn=lines.append)
-        rstate = fresh.resume(TRAIN_STEPS)
+    lines = []
+    live = Trainer(build(bf16), data, cfg, save_folder=folder,
+                   dataset_name="SYN", log_fn=lines.append)
+    state = live.train()
+    for line in lines:
+        log("train", f"6b: {line}")
+    losses = [float(v) for line in lines
+              for v in LOG_LOSSES.search(line).groups()]
+    check(len(lines) == TRAIN_STEPS and state.step == TRAIN_STEPS,
+          f"6b: {len(lines)} log lines, step {state.step}")
+    check(all(np.isfinite(losses)), "6b: a logged loss is not finite")
+    for tag in ("final", TRAIN_STEPS):
+        check(os.path.exists(live.ckpt.path(tag)),
+              f"6b: no checkpoint {tag}")
+    fresh = Trainer(build(bf16, seed=1), data, cfg, save_folder=folder,
+                    dataset_name="SYN", log_fn=lines.append)
+    rstate = fresh.resume(TRAIN_STEPS)
     check(rstate.step == state.step, f"6b: resumed step {rstate.step}")
     for (k, a), b in zip(live.model.net.state_dict().items(),
                          fresh.model.net.state_dict().values()):
@@ -361,6 +379,210 @@ def train_phase(dev: torch.device) -> dict:
         torch.cuda.empty_cache()
     out["step_tflop"] = flops / 1e12
     return out
+
+
+def eval_phase(dev: torch.device, folder: str) -> tuple:
+    """Phase 7: the eval slice on the card; returns its numbers and K1's
+    launches on the two timed runs. 7a reads 6b's ``final`` checkpoint
+    from ``folder``."""
+    from refinedet_tpu_torch.config import MEANS, VOC_MEANS, DetectConfig
+    from refinedet_tpu_torch.data import BaseTransform, VOC_CLASSES
+    from refinedet_tpu_torch.data.loader import wait_for_copy
+    from refinedet_tpu_torch.detect.detection import detect_refinedet
+    from refinedet_tpu_torch.eval import Evaluator, evaluate_voc
+    from refinedet_tpu_torch.eval import evaluator as evaluator_module
+    from refinedet_tpu_torch.eval.cli_coco import make_loader
+    from refinedet_tpu_torch.eval.evaluator import eval_postprocess
+    from refinedet_tpu_torch.models import build_refinedet
+    from refinedet_tpu_torch.ops import nms_cuda
+    from refinedet_tpu_torch.ops.nms import select_candidates
+    from refinedet_tpu_torch.tools.eval_check import (SyntheticSSDD,
+                                                      SyntheticVOC)
+    from refinedet_tpu_torch.train.checkpoints import CheckpointManager
+
+    ssdd_pth = os.path.join(folder, "ssdd512_seed0.pth")
+    seed0 = build_refinedet("test", SSDD_SIZE, 2, device="cpu", seed=0)
+    torch.save(seed0.net.state_dict(), ssdd_pth)  # bare reference keys
+    del seed0
+    runs = [
+        # (name, size, classes, checkpoint, dataset, cfg, nms_top_k,
+        #  plus_one, max_per_image, pixel mean), as the two eval CLIs
+        ("voc", SIZE, NUM_CLASSES,
+         CheckpointManager(folder, f"RefineDet{SIZE}_SYN").path("final"),
+         SyntheticVOC(VOC_EVAL_IMAGES, SIZE, seed=300),
+         DetectConfig(num_classes=NUM_CLASSES, top_k=1000, keep_top_k=1000,
+                      nms_thresh=0.45), 300, False, 500, VOC_MEANS),
+        ("ssdd", SSDD_SIZE, 2, ssdd_pth,
+         SyntheticSSDD(SSDD_EVAL_IMAGES, SSDD_SIZE, seed=400),
+         DetectConfig(num_classes=2, top_k=1000, keep_top_k=500,
+                      nms_thresh=0.49), 1000, True, 500, MEANS),
+    ]
+    out, launches = {}, 0
+    for (name, size, classes, ckpt, data, cfg, nms_top_k, plus_one,
+         max_per_image, mean) in runs:
+        model = build_refinedet("test", size, classes, dtype=torch.bfloat16,
+                                device=dev, seed=1)
+        state = make_loader()(ckpt)
+        evaluator = Evaluator(model, data, cfg, BaseTransform(size, mean),
+                              batch_size=EVAL_BATCH, nms_top_k=nms_top_k,
+                              max_per_image=max_per_image, plus_one=plus_one,
+                              log=lambda line: log("eval", line.strip()))
+        n_batches = -(-len(data) // EVAL_BATCH)
+        tag = (f"7{'a' if name == 'voc' else 'b'} {name}: RefineDet{size}, "
+               f"{classes} classes, bf16, batch {EVAL_BATCH}, "
+               f"{len(data)} images")
+        # -- 7a/7b. the main path: K1 once per batch ------------------------
+        nms_cuda.nms_sweep.launches = 0
+        t0 = time.perf_counter()
+        all_boxes = evaluator.run(state)
+        e2e_ips = len(data) / (time.perf_counter() - t0)
+        timing = dict(evaluator.timing)
+        run_launches = nms_cuda.nms_sweep.launches
+        launches += run_launches
+        log("eval", f"{tag} from {os.path.basename(ckpt)}: K1 launches "
+            f"{run_launches} for {n_batches} batches")
+        check(run_launches == n_batches,
+              f"{name}: K1 launched {run_launches} times in {n_batches} "
+              f"batches")
+        rows = [r for cls in all_boxes[1:] for r in cls]
+        check(len(all_boxes) == classes and all(
+            r.shape[1] == 5 and r.shape[0] <= max_per_image
+            and np.isfinite(r).all() for r in rows),
+            f"{name}: detections of the wrong shape or not finite")
+        t0 = time.perf_counter()
+        if name == "voc":
+            aps = evaluate_voc(all_boxes, data, VOC_CLASSES, verbose=False)
+            ap = {"mAP": aps["mAP"]}
+            log("eval", f"{tag}: VOC07 mAP {aps['mAP']:.4f} (det_shift 1.0)")
+            check(np.isfinite(aps["mAP"]), "voc: mAP is not finite")
+        else:
+            stats = data.evaluate_detections(all_boxes)
+            ap = {"coco_stats": [float(v) for v in stats]}
+            log("eval", f"{tag}: COCO stats {np.round(stats, 4).tolist()}")
+            check(stats.shape == (12,) and np.isfinite(stats).all(),
+                  "ssdd: COCO stats not 12 finite values")
+        ap_s = time.perf_counter() - t0
+
+        # -- 7c. a second run, every batch's heads against the plain path --
+        recorded = []
+
+        def recording(heads, priors, scales, *args):
+            dets = eval_postprocess(heads, priors, scales, *args)
+            recorded.append((heads, scales, dets))
+            return dets
+
+        evaluator_module.eval_postprocess = recording
+        nms_cuda.nms_sweep.launches = 0
+        try:
+            evaluator.run()
+        finally:
+            evaluator_module.eval_postprocess = eval_postprocess
+        check(nms_cuda.nms_sweep.launches == len(recorded) == n_batches,
+              f"{name}: {nms_cuda.nms_sweep.launches} K1 launches for "
+              f"{len(recorded)} recorded of {n_batches} batches")
+        mismatched = 0
+        with torch.inference_mode():
+            for heads, scales, dets in recorded:
+                plain = eval_postprocess(heads, model.priors, scales, cfg,
+                                         nms_top_k, plus_one, plain=True)
+                mismatched += not torch.equal(dets, plain)
+        kept = int(sum(int((d[..., 4] > 0).sum()) for _, _, d in recorded))
+        log("eval", f"7c {name}: kernel path against plain path on the same "
+            f"heads: {n_batches} batches, {mismatched} differ; {kept} "
+            f"detections")
+        check(mismatched == 0, f"{name}: {mismatched} batches differ from "
+              f"the plain post-process")
+
+        # -- 7d. timings -------------------------------------------------------
+        heads, scales, _ = recorded[0]
+        with torch.inference_mode():
+            _, (imgs, _), ready = next(iter(evaluator._staged_batches(
+                EVAL_BATCH)))
+            wait_for_copy([imgs], ready)
+            fwd = cuda_ms(lambda: model.raw_forward(imgs), 10)
+            post = cuda_ms(lambda: eval_postprocess(
+                heads, model.priors, scales, cfg, nms_top_k, plus_one), 10)
+            boxes, scores = detect_refinedet(
+                heads[0], heads[1].softmax(-1), heads[2], heads[3].softmax(-1),
+                model.priors, cfg.variance, cfg.objectness_thresh)
+            _, _, cand, valid = select_candidates(
+                (boxes * scales[:, None, :])[:, None],
+                scores[..., 1:].movedim(-1, 1), nms_top_k, cfg.conf_thresh)
+            cand = cand.reshape(-1, nms_top_k, 4).contiguous()
+            valid = valid.reshape(-1, nms_top_k).contiguous()
+        k1, k1_plain, bound, bound_by = time_sweep(
+            cand, valid, f"eval {name}", cfg.nms_thresh, plus_one)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        staged = 0
+        for idx, tensors, ready in evaluator._staged_batches(len(data)):
+            wait_for_copy(tensors, ready)
+            staged += len(idx)
+        torch.cuda.synchronize()
+        stage_ips = staged / (time.perf_counter() - t0)
+        res = {"images": len(data), "batches": n_batches,
+               "launches": run_launches, "fps": timing["fps"],
+               "p50_batch_ms": timing["p50_batch_ms"],
+               "run_images_per_s": e2e_ips,
+               "forward_ms": fwd, "postprocess_ms": post,
+               "k1_ms": k1, "k1_plain_ms": k1_plain, "k1_bound_ms": bound,
+               "k1_bound_by": bound_by, "k1_groups": int(valid.shape[0]),
+               "k1_k": int(valid.shape[1]), "ap_host_s": ap_s,
+               "staging_images_per_s": stage_ips, **ap}
+        out[name] = res
+        log("time", f"eval {name}: Evaluator {res['fps']:.1f} images/s "
+            f"from its p50 batch {res['p50_batch_ms']:.2f} ms, "
+            f"{e2e_ips:.1f} images/s over the whole run incl. the first "
+            f"batch (host clock); forward "
+            f"{fwd:.2f} ms, eval post-process {post:.2f} ms per batch of "
+            f"{EVAL_BATCH} (CUDA events); AP on the host {ap_s:.3f} s; "
+            f"staging alone {stage_ips:.1f} images/s")
+        del model, evaluator, recorded, heads, scales, imgs
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def time_sweep(cand, valid, label, thresh, plus_one=False):
+    """K1's device ms per launch and the plain version's ms on these
+    candidates at IoU ``thresh``, and K1's bound."""
+    from refinedet_tpu_torch.ops import nms_cuda
+    from refinedet_tpu_torch.ops.nms import nms_sweep_reference
+    from refinedet_tpu_torch.tools.k1_bench import graph_ms
+
+    g, k = valid.shape
+    with torch.inference_mode():
+        ms = graph_ms(lambda: nms_cuda.nms_sweep(
+            cand, valid, thresh, plus_one))
+        plain = cuda_ms(lambda: nms_sweep_reference(
+            cand, valid, thresh, plus_one), 3, warmup=1)
+        keep = nms_cuda.nms_sweep(cand, valid, thresh, plus_one)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            nms_cuda.nms_sweep(cand, valid, thresh, plus_one)
+        host_us = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+    kept_g = keep.sum(1).double()
+    valid_g = valid.sum(1).double()
+    kept = int(kept_g.sum())
+    nbytes = g * k * (16 + 1 + 1)  # boxes + valid in, keep out
+    # The least greedy NMS can test: each kept column against every
+    # earlier kept row, each suppressed column at least once.
+    tests = int((kept_g * (kept_g - 1) / 2 + (valid_g - kept_g)).sum())
+    ops = IOU_OPS * tests
+    all_ops = IOU_OPS * kept * k  # every column against every kept row
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_F32_OPS_PER_S * 1e3
+    all_bound = max(bytes_ms, all_ops / H100_F32_OPS_PER_S * 1e3)
+    log("time", f"K1 {label} G={g} K={k}: {ms:.4f} ms a launch (device, "
+        f"graph of 50); plain {plain:.3f} ms; kept {kept}; bound "
+        f"{max(bytes_ms, ops_ms):.6f} ms ({nbytes} B, {tests} IoU "
+        f"tests, {ops} ops); counting every column against every kept "
+        f"row: {all_bound:.6f} ms ({all_ops} ops)")
+    log("time", f"K1 {label} wrapper: {host_us:.1f} us host time a call "
+        f"(checks, allocation, ctypes launch)")
+    return ms, plain, max(bytes_ms, ops_ms), \
+        "bytes" if bytes_ms >= ops_ms else "operations"
 
 
 def main() -> int:
@@ -558,48 +780,10 @@ def main() -> int:
           "non-finite heads")
 
     # -- 5. timings ----------------------------------------------------------
-    def time_sweep(cand, valid, label):
-        """K1's device ms per launch and the plain version's ms on these
-        candidates, and K1's bound."""
-        g, k = valid.shape
-        with torch.inference_mode():
-            ms = graph_ms(lambda: nms_cuda.nms_sweep(
-                cand, valid, opts.nms_thresh))
-            plain = cuda_ms(lambda: nms_sweep_reference(
-                cand, valid, opts.nms_thresh), 3, warmup=1)
-            keep = nms_cuda.nms_sweep(cand, valid, opts.nms_thresh)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(200):
-                nms_cuda.nms_sweep(cand, valid, opts.nms_thresh)
-            host_us = (time.perf_counter() - t0) / 200 * 1e6
-            torch.cuda.synchronize()
-        kept_g = keep.sum(1).double()
-        valid_g = valid.sum(1).double()
-        kept = int(kept_g.sum())
-        nbytes = g * k * (16 + 1 + 1)  # boxes + valid in, keep out
-        # The least greedy NMS can test: each kept column against every
-        # earlier kept row, each suppressed column at least once.
-        tests = int((kept_g * (kept_g - 1) / 2 + (valid_g - kept_g)).sum())
-        ops = IOU_OPS * tests
-        all_ops = IOU_OPS * kept * k  # every column against every kept row
-        bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-        ops_ms = ops / H100_F32_OPS_PER_S * 1e3
-        all_bound = max(bytes_ms, all_ops / H100_F32_OPS_PER_S * 1e3)
-        log("time", f"K1 {label} G={g} K={k}: {ms:.4f} ms a launch (device, "
-            f"graph of 50); plain {plain:.3f} ms; kept {kept}; bound "
-            f"{max(bytes_ms, ops_ms):.6f} ms ({nbytes} B, {tests} IoU "
-            f"tests, {ops} ops); counting every column against every kept "
-            f"row: {all_bound:.6f} ms ({all_ops} ops)")
-        log("time", f"K1 {label} wrapper: {host_us:.1f} us host time a call "
-            f"(checks, allocation, ctypes launch)")
-        return ms, plain, max(bytes_ms, ops_ms), \
-            "bytes" if bytes_ms >= ops_ms else "operations"
-
     k1_ms, plain_ms, bound_ms, bound_by = time_sweep(
-        serve_cand, serve_valid, "serving")
+        serve_cand, serve_valid, "serving", opts.nms_thresh)
     k1_detect, plain_detect, bound_detect, _ = time_sweep(
-        detect_cand, detect_valid, "detect")
+        detect_cand, detect_valid, "detect", opts.nms_thresh)
 
     timings = {"k1_serve_ms": k1_ms, "plain_serve_ms": plain_ms,
                "bound_serve_ms": bound_ms, "k1_detect_ms": k1_detect,
@@ -633,13 +817,23 @@ def main() -> int:
     # -- 6. the training slice ----------------------------------------------
     del model, m, serve_fn, fn, engine, server, heads, h
     torch.cuda.empty_cache()
-    nms_cuda.nms_sweep.launches = 0
-    train = train_phase(dev)
-    check(nms_cuda.nms_sweep.launches == 0,
-          "the training path launched K1")
-    log("train", "K1 launches on the training path: 0")
+    with tempfile.TemporaryDirectory() as folder:
+        nms_cuda.nms_sweep.launches = 0
+        train = train_phase(dev, folder)
+        check(nms_cuda.nms_sweep.launches == 0,
+              "the training path launched K1")
+        log("train", "K1 launches on the training path: 0")
+        print(json.dumps({"train": train}), flush=True)
+
+        # -- 7. the eval slice -----------------------------------------------
+        torch.cuda.empty_cache()
+        log("eval", smi)
+        t7 = time.perf_counter()
+        evals, eval_launches = eval_phase(dev, folder)
+        log("time", f"phase 7 took {time.perf_counter() - t7:.1f} s")
+    launches += eval_launches
     log("time", f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"train": train}), flush=True)
+    print(json.dumps({"eval": evals}), flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "nms_sweep",

@@ -222,8 +222,18 @@ class BaseTransform:
         self.to_rgb = to_rgb
 
     def __call__(self, img: np.ndarray) -> np.ndarray:
-        img = cv2.resize(img.astype(np.float32), (self.size, self.size),
-                         interpolation=cv2.INTER_LINEAR)
+        if img.shape[:2] == (self.size, self.size):
+            # cv2.resize to the same size copies (bit for bit, tested), so
+            # an image already at the model's size needs no cv2.
+            img = img.astype(np.float32)
+        elif cv2 is None:
+            raise RuntimeError(
+                f"BaseTransform: resizing a {img.shape[1]}x{img.shape[0]} "
+                f"image to {self.size}x{self.size} needs cv2, which is not "
+                "installed")
+        else:
+            img = cv2.resize(img.astype(np.float32), (self.size, self.size),
+                             interpolation=cv2.INTER_LINEAR)
         img -= self.mean
         if self.to_rgb:
             img = img[:, :, ::-1]

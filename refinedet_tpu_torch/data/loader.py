@@ -20,7 +20,8 @@ import os
 import queue
 import threading
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
-from typing import Callable, Iterator, NamedTuple, Optional
+from typing import (Callable, Iterator, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -189,15 +190,22 @@ class StagedBatch(NamedTuple):
     ready: Optional[torch.cuda.Event] = None
 
     def wait(self) -> "StagedBatch":
-        """Make the current stream wait for the copy, and tell the
-        allocator that the current stream uses the tensors (they were
-        allocated on the stager's side stream)."""
-        if self.ready is not None:
-            stream = torch.cuda.current_stream(self.images.device)
-            stream.wait_event(self.ready)
-            for t in self[:4]:
-                t.record_stream(stream)
+        """Make the current stream wait for the copy (see
+        ``wait_for_copy``)."""
+        wait_for_copy(self[:4], self.ready)
         return self
+
+
+def wait_for_copy(tensors: Sequence[torch.Tensor],
+                  ready: Optional[torch.cuda.Event]) -> None:
+    """Make the current stream wait for the copy that ``ready`` follows,
+    and tell the allocator that the current stream uses ``tensors`` (they
+    were allocated on the stager's side stream). No-op for ``None``."""
+    if ready is not None:
+        stream = torch.cuda.current_stream(tensors[0].device)
+        stream.wait_event(ready)
+        for t in tensors:
+            t.record_stream(stream)
 
 
 class DeviceStager:
@@ -209,10 +217,13 @@ class DeviceStager:
         self.device = torch.device(device)
         self._stream = None
 
-    def __call__(self, batch: Batch) -> StagedBatch:
-        host = [torch.from_numpy(np.ascontiguousarray(a)) for a in batch]
+    def stage(self, arrays: Sequence[np.ndarray]
+              ) -> Tuple[List[torch.Tensor], Optional[torch.cuda.Event]]:
+        """numpy arrays -> (tensors on ``device``, the event after their
+        copy, or None where no asynchronous copy was made)."""
+        host = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
         if self.device.type != "cuda":
-            return StagedBatch(*(t.to(self.device) for t in host))
+            return [t.to(self.device) for t in host], None
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
         with torch.cuda.stream(self._stream):
@@ -220,4 +231,8 @@ class DeviceStager:
                    for t in host]
             ready = torch.cuda.Event()
             ready.record(self._stream)
+        return dev, ready
+
+    def __call__(self, batch: Batch) -> StagedBatch:
+        dev, ready = self.stage(batch)
         return StagedBatch(*dev, ready=ready)

@@ -3,9 +3,9 @@
 Port of ``refinedet_tpu/data/sarship.py``, the counterpart of the
 reference's live loader ``data/sarship_coco.py`` (COCODetection) and the
 stock ``data/coco.py``: COCO-json annotation loading with bbox
-sanitization, absolute-pixel targets with 1-based labels, and the raw
-accessor. Its evaluator (``evaluate_detections``) comes with the eval
-slice.
+sanitization, absolute-pixel targets with 1-based labels, the raw
+accessor, and the built-in COCO evaluator (``evaluate_detections`` ->
+the port's numpy COCOeval stats [AP, AP50, AP75, APs, APm, APl, AR...]).
 
 Differences from the reference (deliberate):
   * pure-Python COCO index (refinedet_tpu_torch.data.coco_io) instead of
@@ -16,8 +16,10 @@ Differences from the reference (deliberate):
 
 from __future__ import annotations
 
+import json
+import os
 import os.path as osp
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -27,6 +29,7 @@ except ImportError:  # a host without cv2 can still import the module
     cv2 = None
 
 from refinedet_tpu_torch.data.coco_io import COCO
+from refinedet_tpu_torch.eval.coco_eval import COCOeval
 
 
 class COCODetection:
@@ -67,27 +70,31 @@ class COCODetection:
             coco_name = f"{dataset}_{split}"
             ann_file = osp.join(root, "annotations",
                                 f"instances_{coco_name}.json")
-            coco = COCO(ann_file)
-            self._COCO = coco  # last one wins, mirroring the reference
-            self.coco_name = coco_name
-            self._cocos.append(coco)
+            self._add_image_set(COCO(ann_file), coco_name)
 
-            cats = coco.loadCats(coco.getCatIds())
-            self._classes = ["__background__"] + [c["name"] for c in cats]
-            self.num_classes = len(self._classes)
-            self._class_to_ind = {c: i for i, c in enumerate(self._classes)}
-            self._class_to_coco_cat_id = {
-                c["name"]: c["id"] for c in cats}
-            self._cat_id_to_class_ind = {
-                c["id"]: self._class_to_ind[c["name"]] for c in cats}
+    def _add_image_set(self, coco: COCO, coco_name: str) -> None:
+        """Index one image set's annotations (images under
+        root/coco_name/)."""
+        self._COCO = coco  # last one wins, mirroring the reference
+        self.coco_name = coco_name
+        self._cocos.append(coco)
 
-            indexes = coco.getImgIds()
-            self.image_indexes.extend(indexes)
-            for idx in indexes:
-                fname = coco.loadImgs(idx)[0]["file_name"]
-                self.ids.append(osp.join(root, coco_name, fname))
-                self.annotations.append(
-                    self._annotation_from_index(idx, coco))
+        cats = coco.loadCats(coco.getCatIds())
+        self._classes = ["__background__"] + [c["name"] for c in cats]
+        self.num_classes = len(self._classes)
+        self._class_to_ind = {c: i for i, c in enumerate(self._classes)}
+        self._class_to_coco_cat_id = {
+            c["name"]: c["id"] for c in cats}
+        self._cat_id_to_class_ind = {
+            c["id"]: self._class_to_ind[c["name"]] for c in cats}
+
+        indexes = coco.getImgIds()
+        self.image_indexes.extend(indexes)
+        for idx in indexes:
+            fname = coco.loadImgs(idx)[0]["file_name"]
+            self.ids.append(osp.join(self.root, coco_name, fname))
+            self.annotations.append(
+                self._annotation_from_index(idx, coco))
 
     def __len__(self) -> int:
         return len(self.ids)
@@ -133,3 +140,45 @@ class COCODetection:
     def pull_image(self, index: int):
         img = cv2.imread(self.ids[index], cv2.IMREAD_COLOR)
         return img, self.annotations[index].copy()
+
+    # -- evaluation (sarship_coco.py:279-347 parity) -----------------------
+    def _results_list(self, all_boxes) -> List[dict]:
+        """all_boxes[class][image] = [N, 5] (x1, y1, x2, y2, score)."""
+        results = []
+        for cls_ind, cls in enumerate(self._classes):
+            if cls == "__background__":
+                continue
+            cat_id = self._class_to_coco_cat_id[cls]
+            for im_ind, img_idx in enumerate(self.image_indexes):
+                dets = np.asarray(all_boxes[cls_ind][im_ind],
+                                  dtype=np.float64)
+                if dets.size == 0:
+                    continue
+                # xyxy -> xywh with the reference's +1 convention
+                # (sarship_coco.py:301-304).
+                for k in range(dets.shape[0]):
+                    x1, y1, x2, y2, score = dets[k]
+                    results.append({
+                        "image_id": int(img_idx),
+                        "category_id": int(cat_id),
+                        "bbox": [float(x1), float(y1),
+                                 float(x2 - x1 + 1), float(y2 - y1 + 1)],
+                        "score": float(score),
+                    })
+        return results
+
+    def evaluate_detections(self, all_boxes,
+                            output_dir: Optional[str] = None) -> np.ndarray:
+        results = self._results_list(all_boxes)
+        if output_dir:
+            os.makedirs(output_dir, exist_ok=True)
+            res_file = osp.join(
+                output_dir, f"detections_{self.coco_name}_results.json")
+            with open(res_file, "w") as f:
+                json.dump(results, f)
+        coco_dt = self._COCO.loadRes(results)
+        coco_eval = COCOeval(self._COCO, coco_dt, "bbox")
+        coco_eval.evaluate()
+        coco_eval.accumulate()
+        coco_eval.summarize()
+        return coco_eval.stats

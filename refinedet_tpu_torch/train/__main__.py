@@ -83,9 +83,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 def refuse_unported(args: argparse.Namespace) -> None:
     """Raise for a flag whose feature the port does not have yet."""
     unported = [
-        (args.bn, "--bn", "item 4 (BN variant, 512 and 896)"),
+        (args.bn, "--bn", "item 4 (BN variant and 896)"),
         (args.input_size == "896", "--input_size 896",
-         "item 4 (BN variant, 512 and 896)"),
+         "item 4 (BN variant and 896)"),
         (args.on_device_augment or args.staging_size,
          "--on_device_augment/--staging_size",
          "item 2 (on-device augmentation)"),

@@ -1,6 +1,8 @@
 """Card-only tests of the port: kernel K1 against its plain version, the
-CUDA serving path against the CPU one, and the training slice (matcher,
-losses, one train step, Trainer resume) on the card against the CPU.
+CUDA serving path against the CPU one, the training slice (matcher,
+losses, one train step, Trainer resume) on the card against the CPU, and
+the eval slice (the eval post-process and the Evaluator, kernel path
+against plain path; no host sync inside a batch; the host NMS library).
 
 They skip without a CUDA card. On the card::
 
@@ -18,16 +20,24 @@ import os
 from refinedet_tpu_torch.boxes.geometry import iou_pairwise
 from refinedet_tpu_torch.boxes.matcher import refine_match_batch
 from refinedet_tpu_torch.boxes.codec import decode
-from refinedet_tpu_torch.config import TrainConfig
+from refinedet_tpu_torch.config import (MEANS, VOC_MEANS, DetectConfig,
+                                        TrainConfig)
+from refinedet_tpu_torch.data import BaseTransform
+from refinedet_tpu_torch.data.loader import wait_for_copy
 from refinedet_tpu_torch.data.collate import detection_collate
 from refinedet_tpu_torch.detect.detection import detect_refinedet
+from refinedet_tpu_torch.eval import Evaluator
+from refinedet_tpu_torch.eval import evaluator as evaluator_module
+from refinedet_tpu_torch.eval.evaluator import eval_postprocess
 from refinedet_tpu_torch.models import build_refinedet
-from refinedet_tpu_torch.ops import nms_cuda
+from refinedet_tpu_torch.ops import nms_cuda, nms_native
 from refinedet_tpu_torch.ops.nms import nms_sweep_reference
 from refinedet_tpu_torch.losses import refinedet_multibox_loss
 from refinedet_tpu_torch.serve.export import (fused_nms_settings,
                                               fused_postprocess,
                                               make_serving_fn)
+from refinedet_tpu_torch.tools.eval_check import (SyntheticSSDD,
+                                                  SyntheticVOC)
 from refinedet_tpu_torch.tools.train_check import (SyntheticDetection,
                                                    one_step,
                                                    separated_batch,
@@ -302,3 +312,96 @@ def test_trainer_resume_on_card(cuda, tmp_path):
     for (k, a), b in zip(live.model.net.state_dict().items(),
                          fresh.model.net.state_dict().values()):
         assert torch.equal(a, b), k
+
+
+# -- the eval slice ------------------------------------------------------------
+
+# (size, classes, data, cfg, nms_top_k, plus_one, mean): the VOC CLI's
+# path (G = 8 * 20, K = 300) and the COCO/SSDD CLI's (G = 8, K = 1000, +1)
+EVAL_PATHS = {
+    "voc": (320, 21, lambda n: SyntheticVOC(n, 320, seed=7),
+            DetectConfig(num_classes=21, nms_thresh=0.45), 300, False,
+            VOC_MEANS),
+    "ssdd": (512, 2, lambda n: SyntheticSSDD(n, 512, seed=7),
+             DetectConfig(num_classes=2, nms_thresh=0.49), 1000, True,
+             MEANS),
+}
+
+
+def _evaluator(cuda, path, n, dtype=torch.bfloat16):
+    size, classes, data, cfg, top_k, plus_one, mean = EVAL_PATHS[path]
+    model = build_refinedet("test", size, classes, device=cuda, dtype=dtype)
+    return Evaluator(model, data(n), cfg, BaseTransform(size, mean),
+                     batch_size=8, nms_top_k=top_k, plus_one=plus_one,
+                     log=lambda line: None)
+
+
+@pytest.mark.parametrize("path", ["voc", "ssdd"])
+def test_eval_postprocess_kernel_matches_plain(cuda, path):
+    """At both eval shapes, on random-weight heads (huge and zero-area
+    pixel boxes among the candidates): the kernel path equals the plain
+    path exactly, with one K1 launch."""
+    ev = _evaluator(cuda, path, 8)
+    (_, (imgs, scales), ready), = list(ev._staged_batches(8))
+    with torch.inference_mode():
+        wait_for_copy([imgs, scales], ready)
+        heads = ev.model.raw_forward(imgs)
+        before = nms_cuda.nms_sweep.launches
+        got = eval_postprocess(heads, ev.model.priors, scales, ev.cfg,
+                               ev.nms_top_k, ev.plus_one)
+        assert nms_cuda.nms_sweep.launches == before + 1
+        want = eval_postprocess(heads, ev.model.priors, scales, ev.cfg,
+                                ev.nms_top_k, ev.plus_one, plain=True)
+    assert got.shape == (8, ev.num_classes - 1, ev.nms_top_k, 5)
+    assert int((got[..., 4] > 0).sum()) > 100
+    assert torch.equal(got, want)
+
+
+def test_evaluator_on_card_matches_plain(cuda, monkeypatch):
+    """A small eval set (12 images: one full batch, one padded) through
+    the Evaluator twice: K1 once per batch, and the same all_boxes as
+    with the plain post-process."""
+    ev = _evaluator(cuda, "voc", 12)
+    before = nms_cuda.nms_sweep.launches
+    got = ev.run()
+    assert nms_cuda.nms_sweep.launches == before + 2
+    monkeypatch.setattr(evaluator_module, "eval_postprocess",
+                        lambda *a: eval_postprocess(*a, plain=True))
+    want = ev.run()
+    assert nms_cuda.nms_sweep.launches == before + 2
+    n = 0
+    for g_cls, w_cls in zip(got[1:], want[1:]):
+        for g, w in zip(g_cls, w_cls):
+            assert np.array_equal(g, w)
+            n += len(g)
+    assert n > 100
+
+
+def test_evaluator_batch_never_syncs(cuda):
+    """Staging, forward, post-process and K1 make no blocking copy and no
+    synchronization; the batch's one wait is on the event after its
+    detections' copy to pinned memory, which the debug mode does not
+    count."""
+    ev = _evaluator(cuda, "ssdd", 8)
+    ev.run()  # warm-up: the kernel's build, cuDNN plans
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        all_boxes = ev.run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(all_boxes[1]) == 8
+
+
+def test_nms_native_on_the_card_host(cuda):
+    lib = nms_native.load_library()
+    assert "_build" in lib._name
+    rng = np.random.RandomState(0)
+    xy = rng.uniform(0, 200, (300, 2))
+    dets = np.hstack([xy, xy + rng.uniform(10, 80, (300, 2)),
+                      rng.uniform(0, 1, (300, 1))]).astype(np.float32)
+    for plus_one in (True, False):
+        assert nms_native.nms(dets, 0.45, plus_one=plus_one) == \
+            nms_native._numpy_nms(dets, 0.45, plus_one)
+    keep = nms_native.soft_nms(dets.copy(), method="gaussian")
+    assert 0 < len(keep) <= 300

@@ -181,7 +181,10 @@ def test_port_imports_no_jax():
 
 def test_port_imports_without_cv2():
     """Every module of the port imports where cv2 is missing (the card
-    machine has none): the data modules guard their cv2 import."""
+    machine has none): the data modules and the eval CLIs guard their cv2
+    import. Without cv2 the in-memory eval sets still go through
+    ``BaseTransform`` (their images are already at the model's size), and
+    another size raises."""
     code = (
         "import sys, importlib, pkgutil\n"
         "sys.modules['cv2'] = None\n"
@@ -190,10 +193,23 @@ def test_port_imports_without_cv2():
         "'refinedet_tpu_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
+        "assert {'refinedet_tpu_torch.eval.cli_coco', "
+        "'refinedet_tpu_torch.eval.cli_voc', "
+        "'refinedet_tpu_torch.eval.evaluator', "
+        "'refinedet_tpu_torch.ops.nms_native', "
+        "'refinedet_tpu_torch.tools.eval_check'} <= set(names)\n"
         "from refinedet_tpu_torch.data import augmentations\n"
         "assert augmentations.cv2 is None\n"
+        "from refinedet_tpu_torch.tools.eval_check import SyntheticVOC\n"
+        "t = augmentations.BaseTransform(64)\n"
+        "assert t(SyntheticVOC(1, 64).pull_image(0)).shape == (64, 64, 3)\n"
+        "try:\n"
+        "    t(SyntheticVOC(1, 32).pull_image(0))\n"
+        "    raise SystemExit('resized without cv2')\n"
+        "except RuntimeError as e:\n"
+        "    assert 'needs cv2' in str(e)\n"
         "print(len(names))\n")
     run = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
                          capture_output=True, text=True, timeout=300)
     assert run.returncode == 0, run.stderr[-3000:]
-    assert int(run.stdout.split()[-1]) > 30
+    assert int(run.stdout.split()[-1]) > 37
