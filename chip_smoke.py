@@ -56,7 +56,25 @@ non-zero exit and no result line:
      FPS and p50 batch latency, and the whole run's images/s (host
      clock), forward and post-process ms per batch (CUDA events), K1 at
      the eval shape (graph replay) beside its plain version and bound,
-     the host seconds of the AP, and the staging's images/s alone.
+     the host seconds of the AP, and the staging's images/s alone;
+  8. the BN variant and the five-source RefineDet896, 2 classes, full
+     width: (a) one step of RefineDet512-BN at batch 2 on the card against
+     the same step on the CPU, the network in float64 on both (losses
+     rtol 2e-4, each parameter's update a relative L2 norm of 2e-2, the
+     running statistics rtol 1e-4 of each tensor's largest magnitude; in
+     float32 the train-mode BN forward of a random-init net on these
+     images is ill-conditioned: two CPU thread counts give running
+     statistics 1e-3 apart and flip a match); (b) RefineDet896-BN in
+     bf16 served at batch 8 through ``make_serving_fn(...,
+     fused_nms={})``: K1 once per batch (G = 8, K = 200), the kernel
+     path equal to the plain path on
+     the same heads, then 10 bf16 train steps at batch 8 on one batch of
+     an in-memory 896² set (losses finite, the loss falls, every running
+     statistic moved, no K1 launch); (c) at batch 8 in bf16 the forward
+     and the fused post-process (CUDA events), end-to-end serving (host
+     clock), K1 at G = 8, K = 200 (graph replay) beside its plain version
+     and bound, and the whole step with images/s, peak memory and
+     TFLOP/s.
 
 The line before the last is the card's name and power limit from
 nvidia-smi; the last is {"ok": true, "device": {...}}. TF32 is off for
@@ -104,6 +122,11 @@ EVAL_BATCH = 8
 VOC_EVAL_IMAGES = 128     # 7a: 16 batches, G = 8 * 20, K = 300
 SSDD_EVAL_IMAGES = 64     # 7b: 8 batches, G = 8, K = 1000
 SSDD_SIZE = 512
+BN_STEP_SIZE = 512        # 8a: the reference's BN model
+BN_SIZE = 896             # 8b, 8c: the five-source BN model, 2 classes
+BN_PRIORS = 200508        # 3 * (224² + 112² + 56² + 28² + 14²)
+BN_BATCH = 8              # G = 8 groups of K = NMS_TOP_K in serving
+BN_SERVE_CALLS = 4        # 8b: serving batches on the main path
 LOSS_KEYS = ("arm_loss_l", "arm_loss_c", "odm_loss_l", "odm_loss_c")
 LOG_LOSSES = re.compile(r"ARM_L Loss: (\S+) ARM_C Loss: (\S+) ODM_L Loss: "
                         r"(\S+) ODM_C Loss: (\S+) loss: (\S+) \|\|")
@@ -164,7 +187,7 @@ def train_phase(dev: torch.device, folder: str) -> dict:
     from refinedet_tpu_torch.data.collate import detection_collate
     from refinedet_tpu_torch.models import build_refinedet
     from refinedet_tpu_torch.tools.train_check import (SyntheticDetection,
-                                                       conv_flops, one_step,
+                                                       one_step,
                                                        separated_batch,
                                                        update_rel_errors)
     from refinedet_tpu_torch.train import (Trainer, create_train_state,
@@ -276,8 +299,7 @@ def train_phase(dev: torch.device, folder: str) -> dict:
     del model, opt, step, state
 
     # -- 6d. timings -----------------------------------------------------------
-    flops = 3 * conv_flops(build(device="cpu").net,
-                           torch.zeros(TRAIN_BATCH, SIZE, SIZE, 3))
+    flops = step_flops(NUM_CLASSES, SIZE, False, TRAIN_BATCH)
     log("time", f"train step work: {flops / 1e12:.4f} TFLOP per batch of "
         f"{TRAIN_BATCH} (convolutions: forward, and 2x for backward)")
     e2e_data = Cycled(SyntheticDetection(3 * TRAIN_BATCH, SIZE, NUM_CLASSES,
@@ -310,13 +332,12 @@ def train_phase(dev: torch.device, folder: str) -> dict:
         split, launch = np.zeros(4), np.zeros(4)
         for _ in range(TRAIN_STEPS):
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-            model.net.train()
             opt.zero_grad(set_to_none=True)
             torch.cuda.synchronize()
             torch.cuda._sleep(preload_cycles)
             t = [time.perf_counter()]
             ev[0].record()
-            heads = model.raw_forward(fixed[0])
+            heads = model.raw_forward(fixed[0], train=True)
             ev[1].record()
             t.append(time.perf_counter())
             loss, _ = train_losses(model, heads, *fixed[1:], cfg)
@@ -539,6 +560,206 @@ def eval_phase(dev: torch.device, folder: str) -> tuple:
             f"staging alone {stage_ips:.1f} images/s")
         del model, evaluator, recorded, heads, scales, imgs
         torch.cuda.empty_cache()
+    return out, launches
+
+
+def step_flops(num_classes: int, size: int, use_bn: bool, batch: int) -> int:
+    """Convolution FLOPs of one train step (forward, and 2x for the
+    backward), counted from the shapes of a net on the meta device."""
+    from refinedet_tpu_torch.models import RefineDet
+    from refinedet_tpu_torch.tools.train_check import conv_flops
+
+    with torch.device("meta"):
+        net = RefineDet(num_classes, size, use_bn).eval()
+        images = torch.empty(batch, size, size, 3)
+    return 3 * conv_flops(net, images)
+
+
+def bn_phase(dev: torch.device, rng) -> tuple:
+    """Phase 8: the BN variant and RefineDet896-BN on the card; returns
+    its numbers and K1's launches on the 896 serving path (8b)."""
+    from refinedet_tpu_torch.config import TrainConfig
+    from refinedet_tpu_torch.data.collate import detection_collate
+    from refinedet_tpu_torch.models import build_refinedet_bn
+    from refinedet_tpu_torch.ops import nms_cuda
+    from refinedet_tpu_torch.serve import make_serving_fn
+    from refinedet_tpu_torch.serve.export import (fused_nms_settings,
+                                                  fused_postprocess)
+    from refinedet_tpu_torch.tools.k1_bench import (noise_images,
+                                                    serving_candidates)
+    from refinedet_tpu_torch.tools.train_check import (SyntheticDetection,
+                                                       biases_before_bn,
+                                                       one_step,
+                                                       separated_batch,
+                                                       update_rel_errors)
+    from refinedet_tpu_torch.train import (create_train_state,
+                                           make_optimizer, make_train_step)
+
+    out = {}
+    bf16 = torch.bfloat16
+
+    # -- 8a. one f64 step of RefineDet512-BN, card against CPU --------------
+    cfg = TrainConfig(max_boxes=TRAIN_MAX_BOXES)
+    cpu_model = build_refinedet_bn("train", BN_STEP_SIZE, 2, device="cpu",
+                                   seed=0)
+    cpu_model.net.double()
+    seed, batch = separated_batch(cpu_model, 2, TRAIN_MAX_BOXES, 2,
+                                  cfg.theta, cfg.overlap_thresh)
+    gpu_model = build_refinedet_bn("train", BN_STEP_SIZE, 2, device=dev,
+                                   seed=0)
+    gpu_model.net.double()
+    want, want_up = one_step(cpu_model, batch, cfg, lr=cfg.lr)
+    got, got_up = one_step(gpu_model, batch, cfg, lr=cfg.lr)
+    loss_err = max(abs(got[k] - want[k]) / abs(want[k]) for k in LOSS_KEYS)
+    zero_grad = biases_before_bn(cpu_model.net)
+    noise = max(float(u[k].abs().max()) for u in (got_up, want_up)
+                for k in zero_grad)
+    params = {k for k, _ in cpu_model.net.named_parameters()} - zero_grad
+    # what a bias with a gradient moves: the BN biases right after them
+    bn_bias = 0.0
+    for k in zero_grad:
+        mods, idx, _ = k.split(".")
+        bn_bias = max(bn_bias, float(
+            want_up[f"{mods}.{int(idx) + 1}.bias"].abs().max()))
+    rel = update_rel_errors(got_up, {k: want_up[k] for k in params})
+    worst = max(rel, key=rel.get)
+    cpu_state = cpu_model.net.state_dict()
+    stats_err, n_stats = 0.0, 0
+    for k, v in gpu_model.net.state_dict().items():
+        if ".running_" in k:
+            w = cpu_state[k]
+            stats_err = max(stats_err, float((v.cpu() - w).abs().max()
+                                             / w.abs().max()))
+            n_stats += 1
+            check(torch.allclose(v.cpu(), w, rtol=1e-4,
+                                 atol=1e-4 * float(w.abs().max())),
+                  f"8a: running statistic {k} differs")
+        elif "num_batches" in k:
+            check(int(v) == int(cpu_state[k]) == 1, f"8a: {k} is {int(v)}")
+    log("bn", f"8a: RefineDet{BN_STEP_SIZE}-BN f64 step, batch seed {seed}, "
+        f"{int(batch.valid.sum())} GT boxes; losses card "
+        f"{[round(got[k], 5) for k in LOSS_KEYS]} CPU "
+        f"{[round(want[k], 5) for k in LOSS_KEYS]}, worst rel err "
+        f"{loss_err:.3g} (limit 2e-4)")
+    log("bn", f"8a: {len(rel)} parameter updates, worst rel L2 err "
+        f"{rel[worst]:.3g} ({worst}; limit 2e-2); "
+        f"{len(zero_grad)} BN-fed conv biases (zero gradient) moved at most "
+        f"{noise:.3g}, the BN biases after them {bn_bias:.3g}; {n_stats} "
+        f"running statistics, worst |card - CPU| "
+        f"{stats_err:.3g} of the tensor's max (limit 1e-4)")
+    check(loss_err <= 2e-4, f"8a: card and CPU losses differ by {loss_err}")
+    check(len(rel) > 80 and rel[worst] <= 2e-2,
+          f"8a: {worst}'s update differs by {rel[worst]}")
+    check(noise <= 1e-2 * bn_bias,
+          f"8a: a BN-fed conv bias moved by {noise} (BN biases {bn_bias})")
+    check(n_stats == 2 * 17, f"8a: {n_stats} running statistics")
+    out["step_vs_cpu"] = {"loss_rel_err": loss_err,
+                          "update_rel_err": rel[worst],
+                          "running_stats_err": stats_err, "params": len(rel)}
+    del cpu_model, gpu_model
+
+    # -- 8b. RefineDet896-BN: serving (the main path), then training --------
+    opts = fused_nms_settings(2, {})
+    model = build_refinedet_bn("test", BN_SIZE, 2, dtype=bf16, device=dev,
+                               seed=0)
+    check(tuple(model.priors.shape) == (BN_PRIORS, 4),
+          f"8b: priors {tuple(model.priors.shape)}")
+    serve = make_serving_fn(model, None, fused_nms={})
+    imgs = noise_images(rng, BN_BATCH, BN_SIZE)
+    serve(imgs)  # warm-up: the cuDNN plans of this shape
+    nms_cuda.nms_sweep.launches = 0
+    served = [serve(imgs) for _ in range(BN_SERVE_CALLS)]
+    launches = nms_cuda.nms_sweep.launches
+    check(launches == BN_SERVE_CALLS,
+          f"8b: K1 launched {launches} times in {BN_SERVE_CALLS} batches")
+    for dets in served:
+        check(dets.shape == (BN_BATCH, 1, NMS_TOP_K, 5)
+              and bool(np.isfinite(dets).all()),
+              f"8b: dets {dets.shape}, or not finite")
+    x = torch.from_numpy(imgs).to(dev)
+    with torch.inference_mode():
+        heads = model.raw_forward(x)
+        dets_k = fused_postprocess(heads, model.priors, opts)
+        dets_p = fused_postprocess(heads, model.priors, opts, plain=True)
+    check(torch.equal(dets_k, dets_p),
+          "8b: kernel-path and plain-path detections differ")
+    kept = int((dets_k[..., 4] > 0).sum())
+    log("bn", f"8b: RefineDet{BN_SIZE}-BN bf16 serving, batch {BN_BATCH}: "
+        f"K1 launches {launches} for {BN_SERVE_CALLS} batches; kernel and "
+        f"plain post-process equal on the same heads ({kept} detections)")
+
+    # -- 8c. serving timings --------------------------------------------------
+    with torch.inference_mode():
+        fwd = cuda_ms(lambda: model.raw_forward(x), 10)
+        post = cuda_ms(lambda: fused_postprocess(heads, model.priors, opts),
+                       10)
+    e2e = host_ms(lambda: serve(imgs), 10)
+    cand, valid = serving_candidates(model, imgs, (NMS_TOP_K,),
+                                     opts.conf_thresh)[NMS_TOP_K]
+    k1, k1_plain, bound, bound_by = time_sweep(cand, valid, "serving bn896",
+                                               opts.nms_thresh)
+    out["serve"] = {"forward_ms": fwd, "postprocess_ms": post,
+                    "serve_ms": e2e, "k1_ms": k1, "k1_plain_ms": k1_plain,
+                    "k1_bound_ms": bound, "k1_bound_by": bound_by,
+                    "k1_groups": int(valid.shape[0]),
+                    "k1_k": int(valid.shape[1]), "launches": launches}
+    log("time", f"bn896 bf16 batch {BN_BATCH}: forward {fwd:.2f} ms, fused "
+        f"post-process {post:.2f} ms (CUDA events), end-to-end serving "
+        f"{e2e:.2f} ms (host clock)")
+    del model, serve, heads, x, cand, valid
+    torch.cuda.empty_cache()
+
+    # -- 8b. 10 bf16 train steps on one batch --------------------------------
+    data = SyntheticDetection(BN_BATCH, BN_SIZE, 2, seed=500)
+    fixed = [torch.from_numpy(a).to(dev) for a in detection_collate(
+        [data[i] for i in range(BN_BATCH)], TRAIN_MAX_BOXES)]
+    model = build_refinedet_bn("train", BN_SIZE, 2, dtype=bf16, device=dev,
+                               seed=0)
+    opt = make_optimizer(model.net.parameters(), lambda t: 1e-3,
+                         grad_clip_norm=TRAIN_CLIP)
+    step = make_train_step(model, opt, cfg)
+    state = create_train_state(model, opt)
+    stats0 = {k: v.clone() for k, v in model.net.state_dict().items()
+              if ".running_" in k}
+    nms_cuda.nms_sweep.launches = 0
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        state, metrics = step(state, *fixed)
+        losses.append(metrics["loss"])
+    losses = [float(v) for v in losses]
+    moved = sum(not torch.equal(v, stats0[k])
+                for k, v in model.net.state_dict().items() if k in stats0)
+    log("bn", f"8b: loss over {TRAIN_STEPS} bf16 steps on one batch of "
+        f"{BN_BATCH} at {BN_SIZE}: {[round(v, 2) for v in losses]}; "
+        f"{moved} of {len(stats0)} running statistics moved; K1 launches "
+        f"{nms_cuda.nms_sweep.launches}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "8b: a loss is not finite, or the loss did not fall")
+    check(moved == len(stats0) == 2 * 17, "8b: running statistics did not "
+          "all move")
+    check(nms_cuda.nms_sweep.launches == 0, "8b: the training path "
+          "launched K1")
+    out["learning_losses"] = losses
+
+    # -- 8c. step timings -----------------------------------------------------
+    flops = step_flops(2, BN_SIZE, True, BN_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(lambda: step(state, *fixed), TRAIN_STEPS, 2)
+    peak_mem = torch.cuda.max_memory_allocated()
+    tflops = flops / (step_ms / 1e3) / 1e12
+    out["train"] = {"step_ms": step_ms,
+                    "images_per_s": BN_BATCH * 1e3 / step_ms,
+                    "peak_mem_bytes": peak_mem, "step_tflop": flops / 1e12,
+                    "tflops": tflops,
+                    "share_of_peak": tflops / (H100_BF16_OPS_PER_S / 1e12)}
+    log("time", f"bn896 train bf16 batch {BN_BATCH}: step {step_ms:.2f} ms, "
+        f"{BN_BATCH * 1e3 / step_ms:.1f} images/s, peak memory "
+        f"{peak_mem / 2**30:.2f} GiB, {flops / 1e12:.4f} TFLOP a step, "
+        f"{tflops:.1f} TFLOP/s of {H100_BF16_OPS_PER_S / 1e12:g} peak "
+        f"({100 * out['train']['share_of_peak']:.1f}%)")
+    del model, opt, step, state, fixed
+    torch.cuda.empty_cache()
     return out, launches
 
 
@@ -832,8 +1053,15 @@ def main() -> int:
         evals, eval_launches = eval_phase(dev, folder)
         log("time", f"phase 7 took {time.perf_counter() - t7:.1f} s")
     launches += eval_launches
-    log("time", f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"eval": evals}), flush=True)
+
+    # -- 8. the BN variant and RefineDet896 ---------------------------------
+    t8 = time.perf_counter()
+    bn, bn_launches = bn_phase(dev, rng)
+    launches += bn_launches
+    log("time", f"phase 8 took {time.perf_counter() - t8:.1f} s")
+    log("time", f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"bn": bn}), flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "nms_sweep",

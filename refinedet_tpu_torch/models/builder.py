@@ -1,9 +1,13 @@
 """Model construction + phase wrapper.
 
 Port of ``refinedet_tpu/models/builder.py``: ``build_refinedet(phase,
-size, num_classes)`` returns a ``RefineDetModel`` whose ``apply(images)``
-gives the raw heads + priors in the 'train' phase, and in the 'test'
-phase softmax over the float32 heads followed by the detector.
+size, num_classes, use_bn=...)`` returns a ``RefineDetModel`` whose
+``apply(images)`` gives the raw heads + priors in the 'train' phase, and
+in the 'test' phase softmax over the float32 heads followed by the
+detector. ``apply`` always runs the network in eval mode, as the JAX
+package's does (``train=False`` in both phases): only
+``raw_forward(..., train=True)``, which the train step calls, uses the
+BN variant's batch statistics and moves its running ones.
 
 Parameters are float32. ``dtype=torch.bfloat16`` runs the convolutions
 in bf16 through autocast (L2Norm stays in float32 and the heads come out
@@ -25,7 +29,7 @@ from refinedet_tpu_torch.detect.detection import Detect_RefineDet, \
 from refinedet_tpu_torch.device import DeviceLike, resolve_device
 from refinedet_tpu_torch.models.refinedet import RefineDet
 
-SIZES = (320, 512)
+SIZES = (320, 512, 896)  # 896: the five-source variant
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -50,22 +54,23 @@ class RefineDetModel:
 
     def __init__(self, phase: str, size: int, num_classes: int,
                  detector: Optional[Detect_RefineDet] = None,
-                 dtype: torch.dtype = torch.float32,
+                 use_bn: bool = False, dtype: torch.dtype = torch.float32,
                  device: DeviceLike = "cuda", seed: int = 0):
         if phase not in ("train", "test"):
             raise ValueError(f"phase must be 'train' or 'test', got {phase!r}")
         if size not in SIZES:
-            raise ValueError(f"supported sizes: {SIZES} (the 896 variant is "
-                             "not ported yet)")
+            raise ValueError(f"supported sizes: {SIZES} (896 is the "
+                             "five-source variant)")
         if dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {DTYPES}, got {dtype}")
         self.phase = phase
         self.size = size
         self.num_classes = num_classes
+        self.use_bn = use_bn
         self.dtype = dtype
         self.device = resolve_device(device)
         self.cfg = anchor_config_for(size, num_classes)
-        net = RefineDet(num_classes)
+        net = RefineDet(num_classes, size, use_bn)
         net.reset_parameters(torch.Generator().manual_seed(seed))
         self.net = net.to(self.device,
                           memory_format=torch.channels_last).eval()
@@ -73,8 +78,12 @@ class RefineDetModel:
             self.device)
         self.detect = detector
 
-    def raw_forward(self, images: torch.Tensor):
-        """Raw heads (arm_loc, arm_conf, odm_loc, odm_conf), float32."""
+    def raw_forward(self, images: torch.Tensor, train: bool = False):
+        """Raw heads (arm_loc, arm_conf, odm_loc, odm_conf), float32, with
+        the network in train mode iff ``train`` (BN: batch statistics, and
+        the running ones move)."""
+        if self.net.training != train:
+            self.net.train(train)
         with torch.autocast(device_type=self.device.type,
                             dtype=torch.bfloat16,
                             enabled=self.dtype == torch.bfloat16):
@@ -99,6 +108,7 @@ class RefineDetModel:
 
 def build_refinedet(phase: str, size: int = 320, num_classes: int = 21,
                     detector: Optional[Detect_RefineDet] = None,
+                    use_bn: bool = False,
                     dtype: torch.dtype = torch.float32,
                     device: DeviceLike = "cuda",
                     seed: int = 0) -> RefineDetModel:
@@ -106,4 +116,15 @@ def build_refinedet(phase: str, size: int = 320, num_classes: int = 21,
     with weights drawn from ``seed``; load trained weights with
     ``model.net.load_state_dict(state, strict=True)``."""
     return RefineDetModel(phase, size, num_classes, detector=detector,
-                          dtype=dtype, device=device, seed=seed)
+                          use_bn=use_bn, dtype=dtype, device=device,
+                          seed=seed)
+
+
+def build_refinedet_bn(phase: str, size: int = 320, num_classes: int = 21,
+                       detector: Optional[Detect_RefineDet] = None,
+                       dtype: torch.dtype = torch.float32,
+                       device: DeviceLike = "cuda",
+                       seed: int = 0) -> RefineDetModel:
+    """The BN variant (the reference's ``refinedet_bn.py`` builder)."""
+    return RefineDetModel(phase, size, num_classes, detector=detector,
+                          use_bn=True, dtype=dtype, device=device, seed=seed)

@@ -1,32 +1,32 @@
-"""Weights from the JAX package's params tree to the port's state_dict.
+"""Weights from the JAX package's variables to the port's state_dict.
 
-The port's own converter (plain variant, reference naming). It takes the
-Flax params tree as numpy-convertible arrays, so both packages can be
-given the same weights:
+The port's own converter (reference naming, both variants, four or five
+sources). It takes the Flax variables as numpy-convertible arrays, so both
+packages can be given the same weights:
 
   * conv kernels: Flax HWIO ``[kh, kw, in, out]`` -> torch ``[out, in, kh,
     kw]``;
   * deconv kernels: Flax's ConvTranspose stores the spatially mirrored
     torch kernel, so it is transposed to ``[in, out, kh, kw]`` and flipped
-    back.
+    back;
+  * BatchNorm: ``params`` scale/bias -> ``weight``/``bias``,
+    ``batch_stats`` mean/var -> ``running_mean``/``running_var``, and
+    ``num_batches_tracked`` 0 (torch's key, never read at a fixed
+    momentum).
+
+The variant and the source count are read from the tree: a
+``vgg_conv1_1_bn`` entry means BN, an ``arm_loc4`` entry five sources.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
-# torch ModuleList index of each VGG conv -> its Flax name.
-VGG_CONV_IDX = {
-    0: "conv1_1", 2: "conv1_2", 5: "conv2_1", 7: "conv2_2",
-    10: "conv3_1", 12: "conv3_2", 14: "conv3_3",
-    17: "conv4_1", 19: "conv4_2", 21: "conv4_3",
-    24: "conv5_1", 26: "conv5_2", 28: "conv5_3",
-    31: "conv6", 33: "conv7",
-}
-NUM_SOURCES = 4
+from refinedet_tpu_torch.models.refinedet import L2NORM_TAPS, \
+    vgg_conv_indices
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
@@ -42,33 +42,59 @@ def _deconv(k) -> torch.Tensor:
     return _tensor(w[:, :, ::-1, ::-1])
 
 
-def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """The port's state_dict (float32 CPU tensors) from a Flax params tree
-    (``variables["params"]``, or the variables dict holding it)."""
-    if "params" in params:
-        params = params["params"]
+def module_names(use_bn: bool = False, num_sources: int = 4
+                 ) -> Dict[str, Tuple[str, str]]:
+    """Flax name -> (torch module name, kind) of every layer with weights,
+    kind one of ``conv``, ``deconv``, ``bn``, ``l2norm``: the reference
+    layout of ``refinedet.py`` (plain) or ``refinedet_bn.py`` (BN)."""
+    names: Dict[str, Tuple[str, str]] = {}
+    for idx, name in vgg_conv_indices(use_bn).items():
+        names[f"vgg_{name}"] = (f"vgg.{idx}", "conv")
+        if use_bn:
+            names[f"vgg_{name}_bn"] = (f"vgg.{idx + 1}", "bn")
+    for conv, norm, _ in L2NORM_TAPS:
+        if conv != "conv3_3" or num_sources == 5:
+            names[norm] = (norm, "l2norm")
+    extras = {"extra_conv1": 0, "extra_conv1_bn": 1, "extra_conv2": 3,
+              "extra_conv2_bn": 4} if use_bn else {"extra_conv1": 0,
+                                                   "extra_conv2": 1}
+    for flax_name, idx in extras.items():
+        names[flax_name] = (f"extras.{idx}",
+                            "bn" if flax_name.endswith("_bn") else "conv")
+    for i in range(num_sources):
+        for head in ("arm_loc", "arm_conf", "odm_loc", "odm_conf"):
+            names[f"{head}{i}"] = (f"{head}.{i}", "conv")
+        names[f"tcb0_{i}_conv1"] = (f"tcb0.{3 * i}", "conv")
+        names[f"tcb0_{i}_conv2"] = (f"tcb0.{3 * i + 2}", "conv")
+        names[f"tcb2_{i}_conv"] = (f"tcb2.{3 * i + 1}", "conv")
+        if i < num_sources - 1:
+            names[f"tcb1_{i}_deconv"] = (f"tcb1.{i}", "deconv")
+    return names
+
+
+def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's state_dict (CPU tensors) from Flax variables: a bare
+    params tree (plain variant), or ``{"params": ...}`` with
+    ``"batch_stats"`` for the BN variant."""
+    params = variables["params"] if "params" in variables else variables
+    stats = variables.get("batch_stats") or {}
+    names = module_names("vgg_conv1_1_bn" in params,
+                         5 if "arm_loc4" in params else 4)
     state: Dict[str, torch.Tensor] = {}
-
-    def put(torch_name, flax_name, deconv=False):
+    for flax_name, (module, kind) in names.items():
         leaf = params[flax_name]
-        state[torch_name + ".weight"] = (_deconv if deconv else _conv)(
-            leaf["kernel"])
-        state[torch_name + ".bias"] = _tensor(np.asarray(leaf["bias"]))
-
-    for idx, name in VGG_CONV_IDX.items():
-        put(f"vgg.{idx}", f"vgg_{name}")
-    for norm in ("conv4_3_L2Norm", "conv5_3_L2Norm"):
-        state[norm + ".weight"] = _tensor(np.asarray(params[norm]["weight"]))
-    put("extras.0", "extra_conv1")
-    put("extras.1", "extra_conv2")
-    for i in range(NUM_SOURCES):
-        put(f"arm_loc.{i}", f"arm_loc{i}")
-        put(f"arm_conf.{i}", f"arm_conf{i}")
-        put(f"odm_loc.{i}", f"odm_loc{i}")
-        put(f"odm_conf.{i}", f"odm_conf{i}")
-        put(f"tcb0.{3 * i}", f"tcb0_{i}_conv1")
-        put(f"tcb0.{3 * i + 2}", f"tcb0_{i}_conv2")
-        put(f"tcb2.{3 * i + 1}", f"tcb2_{i}_conv")
-        if i < NUM_SOURCES - 1:
-            put(f"tcb1.{i}", f"tcb1_{i}_deconv", deconv=True)
+        if kind == "l2norm":
+            state[module + ".weight"] = _tensor(leaf["weight"])
+        elif kind == "bn":
+            state[module + ".weight"] = _tensor(leaf["scale"])
+            state[module + ".bias"] = _tensor(leaf["bias"])
+            state[module + ".running_mean"] = _tensor(
+                stats[flax_name]["mean"])
+            state[module + ".running_var"] = _tensor(stats[flax_name]["var"])
+            state[module + ".num_batches_tracked"] = torch.tensor(
+                0, dtype=torch.int64)
+        else:
+            state[module + ".weight"] = (_deconv if kind == "deconv"
+                                         else _conv)(leaf["kernel"])
+            state[module + ".bias"] = _tensor(leaf["bias"])
     return state

@@ -1,4 +1,4 @@
-"""RefineDet320/512 network (plain variant) as an ``nn.Module``.
+"""RefineDet320/512/896 network, plain or BN variant, as an ``nn.Module``.
 
 Port of ``refinedet_tpu/models/refinedet.py``. The public layout is the
 JAX package's: images NHWC ``[B, H, W, 3]`` in, heads ``arm_loc [B,P,4]``,
@@ -8,78 +8,144 @@ strides, which is what cuDNN wants, and heads flatten in (h, w, anchor)
 order (``permute(0, 2, 3, 1)`` before ``reshape``) so they line up with
 the priors.
 
+Variants, as in the JAX module:
+
+  * ``use_bn``: a BatchNorm (flax's semantics, ``layers.BatchNorm2d``)
+    after every VGG conv, conv6, conv7 and both extras; heads and TCB have
+    none. The train mode (``net.train()``) normalises with the batch
+    statistics and moves the running ones.
+  * ``size=896``: five sources, the first an extra stride-4 source tapped
+    after conv3_3 (``conv3_3_L2Norm``, scale 10).
+
 Submodules carry the reference network's state_dict names (``vgg.N``,
 ``extras.N``, ``arm_loc.i``, ``tcb0.{3i,3i+2}``, ``tcb1.i``,
-``tcb2.{3i+1}``, ``conv4_3_L2Norm``), so a reference ``.pth`` strict-loads.
+``tcb2.{3i+1}``, ``conv4_3_L2Norm``), with the BN variant's indices of
+``refinedet_bn.py`` (each conv at idx, its BN at idx+1, then the ReLU;
+extras at 0/1/3/4), so a reference ``.pth`` of either variant
+strict-loads.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 from torch import nn
 
-from refinedet_tpu_torch.models.layers import L2Norm, max_pool_2x2
+from refinedet_tpu_torch.models.layers import BatchNorm2d, L2Norm, \
+    max_pool_2x2
 
-# VGG-16 conv widths; "M" is a 2x2 pool, "C" the ceil-mode pool3.
-VGG_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, "C",
-           512, 512, 512, "M", 512, 512, 512)
-# Channels of the four ARM sources (conv4_3, conv5_3, fc7, extra).
+# VGG-16 convs (name, width); "M" is a 2x2 pool, "C" the ceil-mode pool3.
+VGG_CFG = (("conv1_1", 64), ("conv1_2", 64), "M",
+           ("conv2_1", 128), ("conv2_2", 128), "M",
+           ("conv3_1", 256), ("conv3_2", 256), ("conv3_3", 256), "C",
+           ("conv4_1", 512), ("conv4_2", 512), ("conv4_3", 512), "M",
+           ("conv5_1", 512), ("conv5_2", 512), ("conv5_3", 512))
+# Channels of the four ARM sources (conv4_3, conv5_3, fc7, extra); 896
+# puts conv3_3's 256 in front.
 SOURCE_CHANNELS = (512, 512, 1024, 512)
 TCB_CHANNELS = 256
 ANCHORS_PER_CELL = 3
-# Indices in ``vgg`` of the ReLUs after conv4_3 and conv5_3 (L2Norm taps).
-CONV4_3_TAP = 22
-CONV5_3_TAP = 29
+# L2Norm taps: (conv whose ReLU output is tapped, module name, scale).
+L2NORM_TAPS = (("conv3_3", "conv3_3_L2Norm", 10.0),
+               ("conv4_3", "conv4_3_L2Norm", 10.0),
+               ("conv5_3", "conv5_3_L2Norm", 8.0))
 
 Heads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def _vgg_layers() -> List[nn.Module]:
-    layers: List[nn.Module] = []
+def vgg_layout(use_bn: bool = False) -> List[tuple]:
+    """The ``vgg`` ModuleList, entry by entry: ``("conv", name, c_in,
+    c_out, conv kwargs)``, ``("bn", name, channels)``, ``("relu", name)``
+    or ``("pool", ceil_mode)``."""
+    out: List[tuple] = []
     c_in = 3
-    for v in VGG_CFG:
-        if v in ("M", "C"):
-            layers.append(max_pool_2x2(ceil_mode=v == "C"))
+
+    def conv(name, c_out, **kw):
+        nonlocal c_in
+        out.append(("conv", name, c_in, c_out, kw))
+        if use_bn:
+            out.append(("bn", name, c_out))
+        out.append(("relu", name))
+        c_in = c_out
+
+    for item in VGG_CFG:
+        if item in ("M", "C"):
+            out.append(("pool", item == "C"))
         else:
-            layers += [nn.Conv2d(c_in, v, 3, padding=1),
-                       nn.ReLU(inplace=True)]
-            c_in = v
-    layers += [max_pool_2x2(),                                   # pool5
-               nn.Conv2d(512, 1024, 3, padding=3, dilation=3),   # conv6
-               nn.ReLU(inplace=True),
-               nn.Conv2d(1024, 1024, 1),                         # conv7
-               nn.ReLU(inplace=True)]
-    return layers
+            conv(*item, kernel_size=3, padding=1)
+    out.append(("pool", False))                                # pool5
+    conv("conv6", 1024, kernel_size=3, padding=3, dilation=3)  # dilated fc6
+    conv("conv7", 1024, kernel_size=1)
+    return out
+
+
+def vgg_conv_indices(use_bn: bool = False) -> Dict[int, str]:
+    """``vgg`` index of each conv -> its name (``conv1_1`` ... ``conv7``)."""
+    return {i: e[1] for i, e in enumerate(vgg_layout(use_bn))
+            if e[0] == "conv"}
+
+
+def source_channels(size: int) -> Tuple[int, ...]:
+    return (256,) + SOURCE_CHANNELS if size == 896 else SOURCE_CHANNELS
+
+
+def _vgg_module(entry) -> nn.Module:
+    kind = entry[0]
+    if kind == "conv":
+        _, _, c_in, c_out, kw = entry
+        return nn.Conv2d(c_in, c_out, **kw)
+    if kind == "bn":
+        return BatchNorm2d(entry[2])
+    if kind == "relu":
+        return nn.ReLU(inplace=True)
+    return max_pool_2x2(ceil_mode=entry[1])
 
 
 class RefineDet(nn.Module):
     """VGG-16 trunk + extras + ARM heads + TCB fusion + ODM heads."""
 
-    def __init__(self, num_classes: int = 21):
+    def __init__(self, num_classes: int = 21, size: int = 320,
+                 use_bn: bool = False):
         super().__init__()
         self.num_classes = num_classes
-        self.vgg = nn.ModuleList(_vgg_layers())
-        self.conv4_3_L2Norm = L2Norm(512, 10.0)
-        self.conv5_3_L2Norm = L2Norm(512, 8.0)
-        self.extras = nn.ModuleList([
-            nn.Conv2d(1024, 256, 1),
-            nn.Conv2d(256, 512, 3, stride=2, padding=1)])
+        self.size = size
+        self.use_bn = use_bn
+        layout = vgg_layout(use_bn)
+        self.vgg = nn.ModuleList([_vgg_module(e) for e in layout])
+        relu_at = {e[1]: i for i, e in enumerate(layout) if e[0] == "relu"}
+        width = {e[1]: e[3] for e in layout if e[0] == "conv"}
+        # vgg index -> the L2Norm applied to that layer's output
+        self._taps: Dict[int, str] = {}
+        for conv, name, scale in L2NORM_TAPS:
+            if conv == "conv3_3" and size != 896:
+                continue
+            self.add_module(name, L2Norm(width[conv], scale))
+            self._taps[relu_at[conv]] = name
+        if use_bn:
+            self.extras = nn.ModuleList([
+                nn.Conv2d(1024, 256, 1), BatchNorm2d(256),
+                nn.ReLU(inplace=True),
+                nn.Conv2d(256, 512, 3, stride=2, padding=1), BatchNorm2d(512),
+                nn.ReLU(inplace=True)])
+        else:
+            self.extras = nn.ModuleList([
+                nn.Conv2d(1024, 256, 1),
+                nn.Conv2d(256, 512, 3, stride=2, padding=1)])
+        sources = source_channels(size)
         a = ANCHORS_PER_CELL
         self.arm_loc = nn.ModuleList(
-            [nn.Conv2d(c, a * 4, 3, padding=1) for c in SOURCE_CHANNELS])
+            [nn.Conv2d(c, a * 4, 3, padding=1) for c in sources])
         self.arm_conf = nn.ModuleList(
-            [nn.Conv2d(c, a * 2, 3, padding=1) for c in SOURCE_CHANNELS])
+            [nn.Conv2d(c, a * 2, 3, padding=1) for c in sources])
         self.odm_loc = nn.ModuleList(
-            [nn.Conv2d(TCB_CHANNELS, a * 4, 3, padding=1)
-             for _ in SOURCE_CHANNELS])
+            [nn.Conv2d(TCB_CHANNELS, a * 4, 3, padding=1) for _ in sources])
         self.odm_conf = nn.ModuleList(
             [nn.Conv2d(TCB_CHANNELS, a * num_classes, 3, padding=1)
-             for _ in SOURCE_CHANNELS])
+             for _ in sources])
         tcb0: List[nn.Module] = []
         tcb2: List[nn.Module] = []
-        for c in SOURCE_CHANNELS:
+        for c in sources:
             tcb0 += [nn.Conv2d(c, TCB_CHANNELS, 3, padding=1),
                      nn.ReLU(inplace=True),
                      nn.Conv2d(TCB_CHANNELS, TCB_CHANNELS, 3, padding=1)]
@@ -89,15 +155,18 @@ class RefineDet(nn.Module):
         self.tcb0 = nn.ModuleList(tcb0)
         self.tcb1 = nn.ModuleList(
             [nn.ConvTranspose2d(TCB_CHANNELS, TCB_CHANNELS, 2, 2)
-             for _ in SOURCE_CHANNELS[1:]])
+             for _ in sources[1:]])
         self.tcb2 = nn.ModuleList(tcb2)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The JAX package's init: He-normal (truncated) for the VGG
-        trunk, Xavier-uniform elsewhere, zero biases, L2Norm scales 10/8.
-        Draws from ``generator`` in module order."""
+        trunk, Xavier-uniform elsewhere, zero biases, L2Norm scales 10/8,
+        BatchNorm at scale 1, bias 0, mean 0, var 1. Draws from
+        ``generator`` in module order."""
         with torch.no_grad():
             for name, m in self.named_modules():
+                if isinstance(m, BatchNorm2d):
+                    m.reset_parameters()
                 if not isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
                     continue
                 if name.startswith("vgg."):
@@ -109,8 +178,9 @@ class RefineDet(nn.Module):
                 else:
                     nn.init.xavier_uniform_(m.weight, generator=generator)
                 nn.init.zeros_(m.bias)
-            self.conv4_3_L2Norm.weight.fill_(10.0)
-            self.conv5_3_L2Norm.weight.fill_(8.0)
+            for _, name, scale in L2NORM_TAPS:
+                if hasattr(self, name):
+                    getattr(self, name).weight.fill_(scale)
 
     @staticmethod
     def _flatten(mods: nn.ModuleList, feats, ch: int) -> torch.Tensor:
@@ -125,13 +195,13 @@ class RefineDet(nn.Module):
         sources = []
         for k, layer in enumerate(self.vgg):
             x = layer(x)
-            if k == CONV4_3_TAP:
-                sources.append(self.conv4_3_L2Norm(x))
-            elif k == CONV5_3_TAP:
-                sources.append(self.conv5_3_L2Norm(x))
+            if k in self._taps:
+                sources.append(getattr(self, self._taps[k])(x))
         sources.append(x)  # fc7
-        x = torch.relu(self.extras[0](x))
-        x = torch.relu(self.extras[1](x))
+        for layer in self.extras:
+            x = layer(x)
+            if not self.use_bn:  # the BN variant has its ReLU modules
+                x = torch.relu(x)
         sources.append(x)
 
         arm_loc = self._flatten(self.arm_loc, sources, 4)

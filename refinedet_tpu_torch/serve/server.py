@@ -388,20 +388,8 @@ def client_detect(host: str, port: int, image: np.ndarray,
     return tuple(npz[k] for k in sorted(npz.files))
 
 
-def main(argv=None):
-    """``python -m refinedet_tpu_torch.serve.server --checkpoint m.pth``
-
-    Serves fused-NMS detections (``dets [C-1, 200, 5]`` per image) of a
-    test-phase RefineDet built on ``--device`` (the card by default), with
-    reference-named weights strict-loaded from ``--checkpoint`` or drawn
-    from ``--seed``.
-    """
+def parse_args(argv=None):
     import argparse
-
-    import torch
-
-    from refinedet_tpu_torch.models.builder import build_refinedet
-    from refinedet_tpu_torch.serve.export import make_serving_fn
 
     p = argparse.ArgumentParser(
         description="micro-batching HTTP serving host")
@@ -409,7 +397,9 @@ def main(argv=None):
     p.add_argument("--num_classes", type=int, default=21)
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--checkpoint",
-                     help="reference-named .pth state_dict (strict load)")
+                     help="a training checkpoint of the port, or a "
+                          "reference-named .pth state_dict ('module.' "
+                          "prefixes stripped); strict load")
     src.add_argument("--seed", type=int,
                      help="serve random weights drawn from this seed")
     p.add_argument("--device", default="cuda")
@@ -421,18 +411,40 @@ def main(argv=None):
     p.add_argument("--max_delay_ms", type=float, default=5.0)
     p.add_argument("--max_queue", type=int, default=256,
                    help="pending-request bound; overload returns 503")
-    args = p.parse_args(argv)
+    return p.parse_args(argv)
+
+
+def load_model(args):
+    """The test-phase model the flags ask for, with the weights of
+    ``--checkpoint`` (read as the eval CLIs read theirs) or of
+    ``--seed``."""
+    import torch
+
+    from refinedet_tpu_torch.eval.cli_coco import make_loader
+    from refinedet_tpu_torch.models.builder import build_refinedet
 
     model = build_refinedet("test", args.size, args.num_classes,
                             dtype=getattr(torch, args.dtype),
                             device=args.device, seed=args.seed or 0)
-    state = None
     if args.checkpoint:
-        state = torch.load(args.checkpoint, map_location="cpu",
-                           weights_only=True)
-        if isinstance(state, dict) and "state_dict" in state:
-            state = state["state_dict"]
-    serving = make_serving_fn(model, state, fused_nms={})
+        model.net.load_state_dict(make_loader()(args.checkpoint),
+                                  strict=True)
+    return model
+
+
+def main(argv=None):
+    """``python -m refinedet_tpu_torch.serve.server --checkpoint m.pth``
+
+    Serves fused-NMS detections (``dets [C-1, 200, 5]`` per image) of a
+    test-phase RefineDet built on ``--device`` (the card by default), with
+    the weights of ``--checkpoint`` (a port training checkpoint or a
+    reference-named ``.pth``) or drawn from ``--seed``.
+    """
+    from refinedet_tpu_torch.serve.export import make_serving_fn
+
+    args = parse_args(argv)
+    model = load_model(args)
+    serving = make_serving_fn(model, None, fused_nms={})
     size = args.size
     meta = {"format": "refinedet-tpu-torch-serving", "input_size": size,
             "num_classes": args.num_classes, "dtype": args.dtype,

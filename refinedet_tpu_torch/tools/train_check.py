@@ -10,14 +10,16 @@ Used by ``chip_smoke.py`` (phase 6) and ``tests/test_torch_port_gpu.py``:
     sits so close to a decision that the two devices' last-ulp
     differences in the heads could flip it;
   * ``one_step``: one full train step from the model's current weights,
-    returning the metrics and each parameter's update;
+    returning the metrics and each state_dict entry's update;
+  * ``biases_before_bn``: the BN variant's conv biases whose gradient is
+    zero (left out of relative comparisons);
   * ``conv_flops``: the forward's convolution FLOPs, counted from the
     port's own conv shapes.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Set, Tuple
 
 import numpy as np
 import torch
@@ -67,6 +69,10 @@ class SyntheticDetection:
         return self.items[i]
 
 
+def _param_dtype(model) -> torch.dtype:
+    return next(model.net.parameters()).dtype
+
+
 def separated_batch(cpu_model, batch_size: int, max_boxes: int,
                     num_classes: int, theta: float, threshold: float,
                     seeds: Iterable[int] = range(40)) -> Tuple[int, Batch]:
@@ -81,9 +87,15 @@ def separated_batch(cpu_model, batch_size: int, max_boxes: int,
                                 seed)
         batch = detection_collate([ds[i] for i in range(len(ds))],
                                   max_boxes)
+        # The step's own forward: train mode (BN on the batch statistics),
+        # with the running statistics it moves put back.
+        saved = [b.clone() for b in cpu_model.net.buffers()]
+        images = torch.from_numpy(batch.images).to(_param_dtype(cpu_model))
         with torch.no_grad():
-            arm_loc, arm_conf, _, _ = cpu_model.raw_forward(
-                torch.from_numpy(batch.images))
+            arm_loc, arm_conf, _, _ = cpu_model.raw_forward(images,
+                                                            train=True)
+            for b, s in zip(cpu_model.net.buffers(), saved):
+                b.copy_(s)
             anchors = decode(arm_loc, cpu_model.priors, cpu_model.cfg.variance)
             obj = torch.softmax(arm_conf, -1)[..., 1]
         if float((obj - theta).abs().min()) <= MARGIN:
@@ -105,8 +117,10 @@ def separated_batch(cpu_model, batch_size: int, max_boxes: int,
 def one_step(model, batch: Batch, train_cfg: TrainConfig,
              lr: float) -> Tuple[Dict[str, float], Dict[str, torch.Tensor]]:
     """One train step of ``model`` (its weights are updated in place) at
-    constant ``lr``: the metrics as floats, and each parameter's update
-    (after minus before) as a CPU tensor."""
+    constant ``lr``: the metrics as floats, and each state_dict entry's
+    update (after minus before; BN running statistics included) as a CPU
+    tensor. The images take the dtype of the net's parameters (a net
+    cast to float64 steps in float64)."""
     before = {k: v.detach().cpu().clone()
               for k, v in model.net.state_dict().items()}
     opt = make_optimizer(model.net.parameters(), lambda t: lr,
@@ -114,6 +128,7 @@ def one_step(model, batch: Batch, train_cfg: TrainConfig,
                          train_cfg.grad_clip_norm)
     step = make_train_step(model, opt, train_cfg)
     tensors = [torch.from_numpy(a).to(model.device) for a in batch]
+    tensors[0] = tensors[0].to(_param_dtype(model))
     _, metrics = step(create_train_state(model, opt), *tensors)
     after = model.net.state_dict()
     return ({k: float(v) for k, v in metrics.items()},
@@ -122,15 +137,33 @@ def one_step(model, batch: Batch, train_cfg: TrainConfig,
 
 def update_rel_errors(got: Dict[str, torch.Tensor],
                       want: Dict[str, torch.Tensor]) -> Dict[str, float]:
-    """Per parameter, ||got - want|| / ||want||."""
+    """Per state_dict entry, ||got - want|| / ||want||; an integer entry
+    (BN's ``num_batches_tracked``) is 0 if equal, else inf."""
     return {k: float((got[k] - w).norm() / (w.norm() + 1e-12))
+            if w.is_floating_point()
+            else (0.0 if torch.equal(got[k], w) else float("inf"))
             for k, w in want.items()}
+
+
+def biases_before_bn(net: nn.Module) -> Set[str]:
+    """State_dict names of the conv biases that feed a BatchNorm. BN
+    subtracts the batch mean, so their gradient is zero and their update
+    is rounding noise, which no relative error can be taken of."""
+    names = set()
+    for list_name in ("vgg", "extras"):
+        mods = getattr(net, list_name)
+        for i in range(len(mods) - 1):
+            if isinstance(mods[i], nn.Conv2d) and isinstance(
+                    mods[i + 1], nn.BatchNorm2d):
+                names.add(f"{list_name}.{i}.bias")
+    return names
 
 
 def conv_flops(net: nn.Module, images: torch.Tensor) -> int:
     """FLOPs of the convolutions of one forward of ``net`` on ``images``:
     2·Cin·Cout·k²·Hout·Wout per image for a conv, 2·Cin·Cout·k²·Hin·Win
-    for a transposed conv (each input pixel scatters a k² patch)."""
+    for a transposed conv (each input pixel scatters a k² patch). Only
+    shapes are read: a net and images on the ``meta`` device do."""
     total = 0
 
     def hook(mod, inputs, out):

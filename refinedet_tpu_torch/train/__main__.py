@@ -2,10 +2,11 @@
 
 The flags and defaults of the JAX package's ``train_refinedet.py`` (the
 reference's ``train_refinedet.py``), plus ``--device`` (the card unless
-``--device cpu``). Flow: dataset + SSDAugmentation -> build_refinedet ->
-optional pretrained-VGG backbone -> Trainer (warmup + step lr, SGD with
-momentum and weight decay, checkpoints every 10 epochs, 5 after 200) ->
-``<save_folder>/log.txt`` in the reference's log format.
+``--device cpu``). Flow: dataset + SSDAugmentation -> build_refinedet
+(plain or ``--bn``, 320/512/896) -> optional pretrained backbone or full
+net -> Trainer (warmup + step lr, SGD with momentum and weight decay,
+checkpoints every 10 epochs, 5 after 200) -> ``<save_folder>/log.txt`` in
+the reference's log format -> ``<save_folder>/loss_curve.png``.
 
 Flags of features the port does not have yet raise an error that names
 the ROADMAP.md item bringing them; none is ignored.
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import argparse
 import os
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -24,10 +25,12 @@ from refinedet_tpu_torch.config import TrainConfig
 from refinedet_tpu_torch.data import (COCODetection, SSDAugmentation,
                                       VOCDetection)
 from refinedet_tpu_torch.device import resolve_device
-from refinedet_tpu_torch.models import build_refinedet
+from refinedet_tpu_torch.models import RefineDet, build_refinedet
+from refinedet_tpu_torch.models.convert import module_names
 from refinedet_tpu_torch.train.checkpoints import CheckpointManager
 from refinedet_tpu_torch.train.trainer import Trainer
 from refinedet_tpu_torch.utils import logger as log_util
+from refinedet_tpu_torch.utils.plot import plot_loss
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -40,7 +43,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--dataset_root", default=None,
                    help="VOCdevkit or SSDD_coco root")
     p.add_argument("--basenet", default=None,
-                   help="pretrained VGG .pth (vgg16_reducedfc)")
+                   help="pretrained VGG .pth (vgg16_reducedfc), or a full "
+                        "plain RefineDet .pth")
     p.add_argument("--batch_size", default=32, type=int)
     p.add_argument("--resume", default=None,
                    help="checkpoint path to resume from")
@@ -83,9 +87,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 def refuse_unported(args: argparse.Namespace) -> None:
     """Raise for a flag whose feature the port does not have yet."""
     unported = [
-        (args.bn, "--bn", "item 4 (BN variant and 896)"),
-        (args.input_size == "896", "--input_size 896",
-         "item 4 (BN variant and 896)"),
         (args.on_device_augment or args.staging_size,
          "--on_device_augment/--staging_size",
          "item 2 (on-device augmentation)"),
@@ -101,15 +102,47 @@ def refuse_unported(args: argparse.Namespace) -> None:
                 f"{flag} is not ported yet: ROADMAP.md §1, {item}")
 
 
-def load_basenet(net: torch.nn.Module, path: str) -> None:
-    """Load a ``vgg16_reducedfc`` backbone file (a bare VGG ModuleList
-    state_dict, ``0.weight`` ... ``33.bias``) into ``net.vgg``, strictly."""
+def load_basenet(net: RefineDet, path: str) -> None:
+    """Load pretrained weights by layer name, as the JAX package's
+    ``torch_import.load_weights`` does, into either variant:
+
+    * a full plain RefineDet ``.pth`` (``vgg.`` keys) gives every layer
+      the JAX importer reads (trunk, extras, L2Norms, four sources' heads
+      and TCB);
+    * a ``vgg16_reducedfc`` file (a bare plain VGG ModuleList state_dict,
+      ``0.weight`` ... ``33.bias``) gives the 15 trunk convs.
+
+    BN layers keep their values. A layer the file lacks raises
+    ``RuntimeError`` and a shape that differs from the net's raises
+    ``ValueError``; the net is left unchanged then."""
     state = torch.load(path, map_location="cpu", weights_only=True)
     if "state_dict" in state:
         state = state["state_dict"]
     state = {k[len("module."):] if k.startswith("module.") else k: v
              for k, v in state.items()}
-    net.vgg.load_state_dict(state, strict=True)
+    # the file's layers, by Flax name: a plain four-source net's
+    sources = module_names()
+    if not any(k.startswith("vgg.") for k in state):  # a bare VGG list
+        sources = {k: (m[len("vgg."):], kind)
+                   for k, (m, kind) in sources.items()
+                   if m.startswith("vgg.")}
+    targets = module_names(net.use_bn, len(net.arm_loc))
+    own = net.state_dict()
+    loaded: Dict[str, torch.Tensor] = {}
+    for flax_name, (src, kind) in sources.items():
+        params = ("weight",) if kind == "l2norm" else ("weight", "bias")
+        missing = [f"{src}.{p}" for p in params if f"{src}.{p}" not in state]
+        if missing:
+            raise RuntimeError(f"{path}: Missing key(s) {missing}")
+        for p in params:
+            dst = f"{targets[flax_name][0]}.{p}"
+            got = state[f"{src}.{p}"]
+            if own[dst].shape != got.shape:
+                raise ValueError(
+                    f"shape mismatch importing {flax_name}: {src}.{p} "
+                    f"{tuple(got.shape)} vs the net's {tuple(own[dst].shape)}")
+            loaded[dst] = got
+    net.load_state_dict({**own, **loaded}, strict=True)
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -133,8 +166,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         num_classes = dataset.num_classes
 
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    model = build_refinedet("train", size, num_classes, dtype=dtype,
-                            device=device, seed=args.seed)
+    model = build_refinedet("train", size, num_classes, use_bn=args.bn,
+                            dtype=dtype, device=device, seed=args.seed)
     cfg = TrainConfig(
         batch_size=args.batch_size, lr=args.lr, momentum=args.momentum,
         weight_decay=args.weight_decay, gamma=args.gamma,
@@ -164,6 +197,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     print(f"Training RefineDet{size} on {dataset.name} ({len(dataset)} "
           f"images, {model.device})")
     trainer.train(state, start_epoch=start_epoch)
+    plot_loss(os.path.join(args.save_folder, "log.txt"),
+              os.path.join(args.save_folder, "loss_curve.png"))
 
 
 if __name__ == "__main__":

@@ -9,8 +9,10 @@ checkpoint is a dict::
      optimizer.state_dict(), "ema": {param name: tensor} or None}
 
 ``model`` carries the reference network's key names, so it strict-loads
-into the reference net. Files are written to a temporary name and renamed,
-so a run killed mid-save leaves the previous checkpoint whole.
+into the reference net; for the BN variant it holds the running
+statistics, which the EMA (parameters only) does not. Files are written
+to a temporary name and renamed, so a run killed mid-save leaves the
+previous checkpoint whole.
 """
 
 from __future__ import annotations

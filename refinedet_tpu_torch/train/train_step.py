@@ -10,7 +10,10 @@ over every parameter with the lr of the step count before the step:
 
     [clip_by_global_norm] -> add_decayed_weights -> trace -> scale_by_lr
 
-and optionally the serving-side EMA of the weights. Nothing in the step
+and optionally the serving-side EMA of the weights. The BN variant's
+running statistics are buffers of the net, updated by the forward; the
+EMA, like the JAX package's ``ema_params``, covers parameters only (BN
+scale and bias included, running statistics not). Nothing in the step
 waits on the host: metrics come back as device scalars.
 """
 
@@ -68,8 +71,9 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
 
 @dataclasses.dataclass
 class TrainState:
-    """The step count, the net, its optimizer and the EMA of the
-    weights (parameter name -> tensor; None when the EMA is off)."""
+    """The step count, the net (its BN running statistics included), its
+    optimizer and the EMA of the parameters (name -> tensor; None when
+    the EMA is off)."""
 
     step: int
     net: nn.Module
@@ -147,10 +151,11 @@ def make_train_step(model, optimizer: SGD, train_cfg: TrainConfig
     ema_decay = float(train_cfg.ema_decay)
 
     def step(state: TrainState, images, boxes, labels, valid):
-        # build_refinedet returns the net in eval mode; BN depends on it.
-        model.net.train()
         optimizer.zero_grad(set_to_none=True)
-        heads = model.raw_forward(images)
+        # Train mode: the BN variant normalises with the batch statistics
+        # and moves its running ones, as the JAX step's mutable
+        # batch_stats do.
+        heads = model.raw_forward(images, train=True)
         loss, metrics = train_losses(model, heads, boxes, labels, valid,
                                      train_cfg)
         loss.backward()

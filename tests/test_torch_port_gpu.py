@@ -1,6 +1,7 @@
 """Card-only tests of the port: kernel K1 against its plain version, the
 CUDA serving path against the CPU one, the training slice (matcher,
-losses, one train step, Trainer resume) on the card against the CPU, and
+losses, one train step, Trainer resume, the BN variant's train-mode
+forward) on the card against the CPU, and
 the eval slice (the eval post-process and the Evaluator, kernel path
 against plain path; no host sync inside a batch; the host NMS library).
 
@@ -29,7 +30,7 @@ from refinedet_tpu_torch.detect.detection import detect_refinedet
 from refinedet_tpu_torch.eval import Evaluator
 from refinedet_tpu_torch.eval import evaluator as evaluator_module
 from refinedet_tpu_torch.eval.evaluator import eval_postprocess
-from refinedet_tpu_torch.models import build_refinedet
+from refinedet_tpu_torch.models import build_refinedet, build_refinedet_bn
 from refinedet_tpu_torch.ops import nms_cuda, nms_native
 from refinedet_tpu_torch.ops.nms import nms_sweep_reference
 from refinedet_tpu_torch.losses import refinedet_multibox_loss
@@ -253,6 +254,41 @@ def test_train_step_on_card_matches_cpu(cuda):
     assert len(rel) > 50 and max(rel.values()) < 2e-2, max(rel.items(),
                                                             key=lambda kv:
                                                             kv[1])
+
+
+def test_bn_train_forward_on_card_matches_cpu(cuda):
+    """A train-mode forward of RefineDet320-BN (batch 2, f32) on the card
+    equals the CPU's, heads and running statistics (which follow flax's
+    biased variance on both) at rtol 1e-4 of each tensor's largest
+    magnitude, with no host sync inside."""
+    cpu_model = build_refinedet_bn("train", 320, 21, device="cpu", seed=2)
+    gpu_model = build_refinedet_bn("train", 320, 21, device=cuda, seed=2)
+    img = torch.from_numpy(np.random.RandomState(4).randn(
+        2, 320, 320, 3).astype(np.float32))
+    x = img.to(cuda)
+    with torch.no_grad():
+        gpu_model.raw_forward(x, train=True)  # warm-up: cuDNN's plans
+        gpu_model.net.load_state_dict(cpu_model.net.state_dict())
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            h_gpu = gpu_model.raw_forward(x, train=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        h_cpu = cpu_model.raw_forward(img, train=True)
+    for a, b in zip(h_cpu, h_gpu):
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-4,
+                                   atol=1e-4 * float(a.abs().max()))
+    want = cpu_model.net.state_dict()
+    stats = 0
+    for k, v in gpu_model.net.state_dict().items():
+        if ".running_" in k:
+            torch.testing.assert_close(v.cpu(), want[k], rtol=1e-4,
+                                       atol=1e-4 * float(want[k].abs().max()))
+            stats += 1
+        elif "num_batches" in k:
+            assert int(v) == int(want[k]) == 1
+    assert stats == 2 * 17
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -158,6 +158,25 @@ def test_main_needs_card_unless_cpu(monkeypatch):
         port_server.main(["--seed", "0"])
 
 
+def test_main_loads_training_checkpoints(tmp_path):
+    """``--checkpoint`` reads a port training checkpoint (its ``model``)
+    and a ``module.``-prefixed reference ``.pth``, as the eval CLIs do."""
+    src = build_refinedet("test", 320, NUM_CLASSES, device="cpu", seed=5)
+    weights = src.net.state_dict()
+    files = {"ckpt.pth": {"step": 3, "model": weights, "optimizer": {},
+                          "ema": None},
+             "module.pth": {"module." + k: v for k, v in weights.items()}}
+    for name, obj in files.items():
+        torch.save(obj, tmp_path / name)
+        args = port_server.parse_args([
+            "--checkpoint", str(tmp_path / name), "--device", "cpu",
+            "--num_classes", str(NUM_CLASSES)])
+        model = port_server.load_model(args)
+        assert model.phase == "test"
+        for k, v in model.net.state_dict().items():
+            assert torch.equal(v, weights[k]), (name, k)
+
+
 def _imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

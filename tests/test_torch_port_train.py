@@ -12,6 +12,7 @@ L2 norm of 1e-4 and the momentum buffers rtol 1e-5; the host data
 pipeline bit for bit.
 """
 
+import importlib.util
 import os
 import re
 import subprocess
@@ -31,6 +32,8 @@ from refinedet_tpu.config import TrainConfig as JTrainConfig  # noqa: E402
 from refinedet_tpu.data import augmentations as jaug  # noqa: E402
 from refinedet_tpu.data.loader import DataLoader as JDataLoader  # noqa: E402
 from refinedet_tpu.models import build_refinedet as jbuild  # noqa: E402
+from refinedet_tpu.models.torch_import import (  # noqa: E402
+    load_weights, torch_state_dict_to_flax, torch_state_dict_to_flax_bn)
 from refinedet_tpu.train import make_lr_schedule as jschedule  # noqa: E402
 from refinedet_tpu.train import make_optimizer as joptimizer  # noqa: E402
 from refinedet_tpu.train import make_train_step as jmake_step  # noqa: E402
@@ -495,6 +498,8 @@ def test_cli_trains_and_resumes_on_cpu(tiny_coco, tmp_path):
     assert "Epoch:1/1 || Epochiter: 1/1 || Iter: 1/1 ||" in log
     final = save / "RefineDet320_COCO_epoches_final.pth"
     assert final.exists()
+    if importlib.util.find_spec("matplotlib") is not None:
+        assert (save / "loss_curve.png").stat().st_size > 0
     log, hits = run("--max_epoch", "2", "--resume", str(final))
     assert "resumed from" in log and "(epoch 1)" in log
     assert [int(m.group(1)) for m in hits] == [2]
@@ -503,14 +508,36 @@ def test_cli_trains_and_resumes_on_cpu(tiny_coco, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--bn"], ["--input_size", "896"], ["--on_device_augment"],
-    ["--staging_size", "640"], ["--spatial_shards", "2"], ["--ngpu", "2"],
-    ["--visdom"]])
+    ["--on_device_augment"], ["--staging_size", "640"],
+    ["--spatial_shards", "2"], ["--ngpu", "2"], ["--visdom"]])
 def test_cli_refuses_unported_flags(flags, tmp_path):
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1, item"):
         cli.main(flags + ["--device", "cpu", "--save_folder",
                           str(tmp_path)])
     assert not os.listdir(tmp_path)  # refused before anything was written
+
+
+@pytest.mark.parametrize("flags,size,use_bn", [
+    (["--bn"], 512, True), (["--input_size", "896"], 896, False)],
+    ids=["bn", "896"])
+def test_cli_builds_bn_and_896(flags, size, use_bn, tiny_coco, tmp_path,
+                               monkeypatch):
+    """``--bn`` and ``--input_size 896`` build that model and hand it to
+    the Trainer (whose ``train`` is replaced: nothing trains)."""
+    handed = []
+    monkeypatch.setattr(Trainer, "train",
+                        lambda self, state, start_epoch: handed.append(
+                            (self.model, state, start_epoch)))
+    cli.main(flags + ["--device", "cpu", "--dataset_root", tiny_coco,
+                      "--num_workers", "0", "--save_folder", str(tmp_path)])
+    (model, state, start), = handed
+    assert (model.size, model.use_bn, model.net.use_bn) == (size, use_bn,
+                                                           use_bn)
+    assert model.phase == "train" and state is None and start == 0
+    assert len(model.priors) == {512: 16320, 896: 200508}[size]
+    bns = [m for m in model.net.modules()
+           if isinstance(m, torch.nn.BatchNorm2d)]
+    assert len(bns) == (17 if use_bn else 0)
 
 
 def test_cli_needs_card_unless_cpu(monkeypatch, tmp_path):
@@ -519,16 +546,41 @@ def test_cli_needs_card_unless_cpu(monkeypatch, tmp_path):
         cli.main(["--save_folder", str(tmp_path)])
 
 
-def test_basenet_loads_into_vgg_strictly(tmp_path):
+@pytest.mark.parametrize("use_bn", [False, True], ids=["plain", "bn"])
+def test_basenet_loads_into_vgg_strictly(use_bn, tmp_path):
+    """``--basenet`` loads as the JAX package's ``load_weights`` does, into
+    either variant: a ``vgg16_reducedfc`` file (``module.`` keys) gives
+    the trunk, a full plain RefineDet ``.pth`` every layer the JAX
+    importer reads; a file JAX cannot load raises."""
     src = RefineDet(2)
     src.reset_parameters(torch.Generator().manual_seed(5))
-    path = str(tmp_path / "vgg16_reducedfc.pth")
-    torch.save({"module." + k: v for k, v in src.vgg.state_dict().items()},
-               path)
-    net = RefineDet(2)
-    cli.load_basenet(net, path)
-    for k, v in src.vgg.state_dict().items():
-        assert torch.equal(net.vgg.state_dict()[k], v)
+    files = {"vgg": {"module." + k: v
+                     for k, v in src.vgg.state_dict().items()},
+             "full": {"state_dict": src.state_dict()}}
+    for name, obj in files.items():
+        net = RefineDet(2, use_bn=use_bn)
+        net.reset_parameters(torch.Generator().manual_seed(6))
+        sd0 = {k: v.clone() for k, v in net.state_dict().items()}
+        if use_bn:
+            variables = torch_state_dict_to_flax_bn(sd0)
+        else:
+            variables = {"params": torch_state_dict_to_flax(sd0)}
+        path = str(tmp_path / f"{name}.pth")
+        torch.save(obj, path)
+        cli.load_basenet(net, path)
+        want = state_dict_from_flax({
+            **variables, "params": load_weights(variables["params"], path)})
+        got = net.state_dict()
+        assert set(got) == set(want)
+        for k, v in want.items():
+            assert torch.equal(got[k], v), (name, k)
+        assert torch.equal(got["vgg.0.weight"], src.vgg[0].weight)
+        # (biases start at 0 and the L2Norm scales at 10/8 in both nets)
+        changed = [k for k in got if not torch.equal(got[k], sd0[k])]
+        assert len(changed) == {"vgg": 15, "full": 48}[name]
+    path = str(tmp_path / "broken.pth")
     torch.save({"0.weight": src.vgg[0].weight}, path)
     with pytest.raises(RuntimeError, match="Missing key"):
         cli.load_basenet(net, path)
+    with pytest.raises(KeyError):
+        load_weights(variables["params"], path)
