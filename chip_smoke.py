@@ -74,7 +74,27 @@ non-zero exit and no result line:
      and the fused post-process (CUDA events), end-to-end serving (host
      clock), K1 at G = 8, K = 200 (graph replay) beside its plain version
      and bound, and the whole step with images/s, peak memory and
-     TFLOP/s.
+     TFLOP/s;
+  9. on-device augmentation (``data/augment.py``), RefineDet320, VOC
+     table, full width, ``max_boxes`` 60, staging 640, on the staged
+     in-memory set (``tools/train_check.py:StagedSyntheticDetection``,
+     uint8 RGB as ``StagingTransform`` hands it on): (a) ``augment_batch``
+     on the card against the CPU on the same draws and images, batch 8
+     (images 1e-3 absolute on the 0-255 scale, boxes 1e-5; valid and the
+     trial taken exact except at a crop test within 1e-5 of its threshold,
+     counted); (b) ``Trainer(..., TrainConfig(on_device_augment=True,
+     mean=VOC_MEANS)).train()`` in bf16 at batch 32 for 10 steps into a
+     temporary folder, every logged loss finite; ``Trainer.resume(10)``
+     gives the step, and the next step's augmented batch and one step
+     from each (cuDNN deterministic) equal the uninterrupted run's; two
+     steps under ``set_sync_debug_mode("error")``; (c) beside the card's
+     name and power limit: ``augment_batch`` per batch of 32 and its split
+     into the draws, photometric, crop selection and resample (CUDA
+     events), the augmented bf16 step against 6d's plain one, the host's
+     time to issue ``augment_batch`` and the step (no sync), the bytes
+     copied to the card per batch, the augmented Trainer's images/s end to
+     end and its feed's alone (host clock, as 6d), and ``augment_batch``
+     at 896's staging of 1792, batch 8. K1 must not be launched.
 
 The line before the last is the card's name and power limit from
 nvidia-smi; the last is {"ok": true, "device": {...}}. TF32 is off for
@@ -127,6 +147,9 @@ BN_SIZE = 896             # 8b, 8c: the five-source BN model, 2 classes
 BN_PRIORS = 200508        # 3 * (224² + 112² + 56² + 28² + 14²)
 BN_BATCH = 8              # G = 8 groups of K = NMS_TOP_K in serving
 BN_SERVE_CALLS = 4        # 8b: serving batches on the main path
+STAGING = 640             # 9: the on-device augmentation's canvas, 2 x 320
+AUG_CHECK_BATCH = 8       # 9a: card against CPU
+BN_STAGING = 1792         # 9c: 2 x 896
 LOSS_KEYS = ("arm_loss_l", "arm_loss_c", "odm_loss_l", "odm_loss_c")
 LOG_LOSSES = re.compile(r"ARM_L Loss: (\S+) ARM_C Loss: (\S+) ODM_L Loss: "
                         r"(\S+) ODM_C Loss: (\S+) loss: (\S+) \|\|")
@@ -154,6 +177,18 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_issue_ms(fn, reps: int) -> float:
+    """Mean host time to issue ``fn()`` with no sync, the card idle at
+    the start: the host's side of work the card queues."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
 
 
 def host_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -763,6 +798,227 @@ def bn_phase(dev: torch.device, rng) -> tuple:
     return out, launches
 
 
+def augment_phase(dev: torch.device, smi: str, plain: dict) -> dict:
+    """Phase 9: on-device augmentation on the card; returns its numbers.
+    ``plain`` is 6d's bf16 step, printed beside the augmented one."""
+    from refinedet_tpu_torch.config import MEANS, VOC_MEANS, TrainConfig
+    from refinedet_tpu_torch.data import augment as aug
+    from refinedet_tpu_torch.data.collate import detection_collate
+    from refinedet_tpu_torch.models import build_refinedet
+    from refinedet_tpu_torch.tools.train_check import (
+        CROP_MARGIN, StagedSyntheticDetection, crop_near_ties)
+    from refinedet_tpu_torch.train import (Trainer, create_train_state,
+                                           make_optimizer, make_train_step)
+
+    out = {}
+    bf16 = torch.bfloat16
+    s0 = float(STAGING)
+
+    def build(seed=0):
+        return build_refinedet("train", SIZE, NUM_CLASSES, dtype=bf16,
+                               device=dev, seed=seed)
+
+    staged = StagedSyntheticDetection(TRAIN_BATCH, STAGING, NUM_CLASSES,
+                                      seed=600)
+    batch = detection_collate([staged[i] for i in range(len(staged))],
+                              TRAIN_MAX_BOXES)
+    fixed = [torch.from_numpy(a).to(dev) for a in batch]
+
+    # -- 9a. augment_batch, card against CPU, on the same draws -------------
+    n = AUG_CHECK_BATCH
+    draws = aug.sample_draws(torch.Generator().manual_seed(9), n)
+    cpu = [torch.from_numpy(a[:n]) for a in batch]
+    card = [t.to(dev) for t in cpu]
+    cdraws = draws.to(dev)
+    got = aug.augment_batch(card[0], card[1], card[3], cdraws, SIZE,
+                            VOC_MEANS)
+    want = aug.augment_batch(cpu[0], cpu[1], cpu[3], draws, SIZE, VOC_MEANS)
+    photo_err = float((aug.photometric_apply(card[0].float(), cdraws).cpu()
+                       - aug.photometric_apply(cpu[0].float(), draws))
+                      .abs().max())
+    trial_g = aug.select_crop(card[1], card[3], cdraws, s0, s0).trial.cpu()
+    trial_c = aug.select_crop(cpu[1], cpu[3], draws, s0, s0).trial
+    differ = (trial_g != trial_c) | (got[2].cpu() != want[2]).any(1)
+    near = crop_near_ties(cpu[1], cpu[3], draws, s0, s0)
+    same = ~differ
+    img_err = float((got[0].cpu() - want[0])[same].abs().max())
+    box_err = float((got[1].cpu() - want[1])[same].abs().max())
+    log("aug", f"9a: augment_batch batch {n}, staging {STAGING} -> {SIZE}: "
+        f"modes {draws.mode.tolist()}, trials card "
+        f"{trial_g.tolist()} CPU {trial_c.tolist()}; {int(differ.sum())} "
+        f"images differ in the trial or a kept box, {int(near.sum())} "
+        f"near-ties (a crop test within {CROP_MARGIN:g}), "
+        f"{int((differ & ~near).sum())} differ without one")
+    log("aug", f"9a: card vs CPU max abs err: images {img_err:.3g} (limit "
+        f"1e-3), of which the photometric step {photo_err:.3g}; boxes "
+        f"{box_err:.3g} (limit 1e-5)")
+    check(not bool((differ & ~near).any()),
+          "9a: the card and the CPU take another crop away from a tie")
+    check(img_err <= 1e-3 and box_err <= 1e-5,
+          f"9a: card and CPU differ: images {img_err}, boxes {box_err}")
+    out["card_vs_cpu"] = {"images_abs_err": img_err,
+                          "photometric_abs_err": photo_err,
+                          "boxes_abs_err": box_err,
+                          "differ": int(differ.sum()),
+                          "near_ties": int(near.sum())}
+
+    # -- 9b. the augmenting Trainer, resume, no host wait -----------------
+    cfg = TrainConfig(batch_size=TRAIN_BATCH, max_boxes=TRAIN_MAX_BOXES,
+                      max_epoch=TRAIN_STEPS, num_workers=4,
+                      grad_clip_norm=TRAIN_CLIP, on_device_augment=True,
+                      mean=VOC_MEANS)
+    lines = []
+    with tempfile.TemporaryDirectory() as folder:
+        live = Trainer(build(), staged, cfg, save_folder=folder,
+                       dataset_name="STAGED", log_fn=lines.append)
+        state = live.train()
+        fresh = Trainer(build(seed=1), staged, cfg, save_folder=folder,
+                        dataset_name="STAGED", log_fn=lambda line: None)
+        rstate = fresh.resume(TRAIN_STEPS)
+    for line in lines:
+        log("aug", f"9b: {line}")
+    losses = [float(v) for line in lines
+              for v in LOG_LOSSES.search(line).groups()]
+    check(len(lines) == TRAIN_STEPS and state.step == TRAIN_STEPS,
+          f"9b: {len(lines)} log lines, step {state.step}")
+    check(all(np.isfinite(losses)), "9b: a logged loss is not finite")
+    check(rstate.step == state.step, f"9b: resumed step {rstate.step}")
+
+    def next_batch(step):
+        return aug.augment_batch(
+            fixed[0], fixed[1], fixed[3], aug.sample_draws(
+                aug.step_generator(cfg.seed, step, dev), TRAIN_BATCH),
+            SIZE, cfg.mean)
+
+    check(all(torch.equal(a, b) for a, b in zip(next_batch(state.step),
+                                                next_batch(rstate.step))),
+          "9b: the resumed run augments its next batch otherwise")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        state, _ = live.train_step(state, *fixed)
+        rstate, _ = fresh.train_step(rstate, *fixed)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    diff = max(float((a.float() - b.float()).abs().max()) for a, b in zip(
+        live.model.net.state_dict().values(),
+        fresh.model.net.state_dict().values()))
+    check(diff == 0.0, f"9b: the step from the resumed state differs by "
+          f"{diff}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            state, metrics = live.train_step(state, *fixed)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(np.isfinite(float(metrics["loss"])), "9b: loss not finite")
+    log("aug", f"9b: {TRAIN_STEPS} augmented bf16 steps logged, all finite; "
+        f"resumed epoch {TRAIN_STEPS} at step {TRAIN_STEPS}: the next "
+        f"augmented batch equal, one step from each (cuDNN deterministic) "
+        f"max |live - resumed| {diff:g}; 2 steps under "
+        f"set_sync_debug_mode('error'), no host wait")
+    out["learning_losses"] = losses
+    del live, fresh, state, rstate
+
+    # -- 9c. timings ------------------------------------------------------------
+    log("aug", f"9c: {smi}")
+    draws = aug.sample_draws(aug.step_generator(0, 0, dev), TRAIN_BATCH)
+    img = fixed[0].float()
+    crop = aug.select_crop(fixed[1], fixed[3], draws, s0, s0)
+    scale, trans = aug.crop_scale_translation(crop, SIZE)
+    whole = cuda_ms(lambda: aug.augment_batch(
+        fixed[0], fixed[1], fixed[3], draws, SIZE, VOC_MEANS), 10)
+    split = {
+        "draws": cuda_ms(lambda: aug.sample_draws(
+            aug.step_generator(0, 0, dev), TRAIN_BATCH), 10),
+        "photometric": cuda_ms(lambda: aug.photometric_apply(img, draws),
+                               10),
+        "crop": cuda_ms(lambda: aug.select_crop(fixed[1], fixed[3], draws,
+                                                s0, s0), 10),
+        "resample": cuda_ms(lambda: aug.resample(img, scale, trans, SIZE),
+                            10)}
+    issue = {"augment": host_issue_ms(lambda: aug.augment_batch(
+        fixed[0], fixed[1], fixed[3], draws, SIZE, VOC_MEANS), 10)}
+    staged_bytes = sum(a.nbytes for a in batch)
+    plain_bytes = (TRAIN_BATCH * SIZE * SIZE * 3 * 4
+                   + sum(a.nbytes for a in batch[1:]))
+    log("time", f"augment_batch batch {TRAIN_BATCH}, staging {STAGING} -> "
+        f"{SIZE}: {whole:.3f} ms (CUDA events); draws {split['draws']:.3f}, "
+        f"photometric {split['photometric']:.3f}, crop selection "
+        f"{split['crop']:.3f}, resample {split['resample']:.3f} ms timed "
+        f"apart; {smi}")
+    log("time", f"augment_batch: host time to issue it {issue['augment']:.3f}"
+        f" ms a call (no sync)")
+    log("time", f"bytes copied to the card per batch: {staged_bytes} staged "
+        f"uint8 at {STAGING} against {plain_bytes} for float32 at {SIZE}")
+
+    model = build()
+    opt = make_optimizer(model.net.parameters(), lambda t: 1e-3,
+                         grad_clip_norm=TRAIN_CLIP)
+    step = make_train_step(model, opt, cfg)
+    state = create_train_state(model, opt)
+    for _ in range(3):
+        state, _ = step(state, *fixed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(lambda: step(state, *fixed), TRAIN_STEPS, 0)
+    peak_mem = torch.cuda.max_memory_allocated()
+    issue["step"] = host_issue_ms(lambda: step(state, *fixed), TRAIN_STEPS)
+    e2e_data = Cycled(StagedSyntheticDetection(
+        3 * TRAIN_BATCH, STAGING, NUM_CLASSES, seed=700),
+        E2E_STEPS * TRAIN_BATCH)
+    trainer = Trainer(model, e2e_data, dataclasses.replace(
+        cfg, max_epoch=2, num_workers=8), log_fn=lambda line: None)
+    tstate = trainer.train(max_epochs=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train(tstate, start_epoch=1, max_epochs=1)
+    torch.cuda.synchronize()
+    e2e_ips = len(e2e_data) / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    fed = sum(sb.wait().images.shape[0] for sb in trainer.loader)
+    torch.cuda.synchronize()
+    feed_ips = fed / (time.perf_counter() - t0)
+    log("time", f"augmented train bf16 batch {TRAIN_BATCH}: step "
+        f"{step_ms:.2f} ms ({TRAIN_BATCH * 1e3 / step_ms:.1f} images/s, "
+        f"peak memory {peak_mem / 2**30:.2f} GiB) against 6d's plain "
+        f"{plain['step_ms']:.2f} ms ({plain['images_per_s']:.1f} images/s);"
+        f" host time to issue it {issue['step']:.2f} ms (no sync)")
+    log("time", f"augmented Trainer end to end {e2e_ips:.1f} images/s (host "
+        f"clock, an epoch of {E2E_STEPS} steps after a warm-up epoch); its "
+        f"feed alone {feed_ips:.1f} images/s; 6d's plain Trainer "
+        f"{plain['trainer_images_per_s']:.1f}, feed "
+        f"{plain['feed_images_per_s']:.1f}")
+    del model, opt, step, state, trainer, tstate, img
+    torch.cuda.empty_cache()
+
+    big = StagedSyntheticDetection(BN_BATCH, BN_STAGING, 2, seed=800)
+    big = [torch.from_numpy(a).to(dev) for a in detection_collate(
+        [big[i] for i in range(BN_BATCH)], TRAIN_MAX_BOXES)]
+    big_draws = aug.sample_draws(aug.step_generator(0, 0, dev), BN_BATCH)
+    big_ms = cuda_ms(lambda: aug.augment_batch(big[0], big[1], big[3],
+                                               big_draws, BN_SIZE, MEANS), 5)
+    log("time", f"augment_batch batch {BN_BATCH}, staging {BN_STAGING} -> "
+        f"{BN_SIZE}: {big_ms:.3f} ms (CUDA events)")
+    out["time"] = {"augment_ms": whole, **{f"{k}_ms": v
+                                           for k, v in split.items()},
+                   "step_ms": step_ms,
+                   "images_per_s": TRAIN_BATCH * 1e3 / step_ms,
+                   "plain_step_ms": plain["step_ms"],
+                   "peak_mem_bytes": peak_mem,
+                   "staged_bytes": staged_bytes, "plain_bytes": plain_bytes,
+                   "trainer_images_per_s": e2e_ips,
+                   "feed_images_per_s": feed_ips,
+                   "augment_1792_ms": big_ms,
+                   **{f"{k}_host_issue_ms": v for k, v in issue.items()},
+                   "card": smi}
+    del big, fixed
+    torch.cuda.empty_cache()
+    return out
+
+
 def time_sweep(cand, valid, label, thresh, plus_one=False):
     """K1's device ms per launch and the plain version's ms on these
     candidates at IoU ``thresh``, and K1's bound."""
@@ -1060,8 +1316,18 @@ def main() -> int:
     bn, bn_launches = bn_phase(dev, rng)
     launches += bn_launches
     log("time", f"phase 8 took {time.perf_counter() - t8:.1f} s")
-    log("time", f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"bn": bn}), flush=True)
+
+    # -- 9. on-device augmentation -------------------------------------------
+    t9 = time.perf_counter()
+    nms_cuda.nms_sweep.launches = 0
+    augmented = augment_phase(dev, smi, train["bf16"])
+    check(nms_cuda.nms_sweep.launches == 0,
+          "the augmented training path launched K1")
+    log("aug", "K1 launches on the augmented training path: 0")
+    log("time", f"phase 9 took {time.perf_counter() - t9:.1f} s")
+    log("time", f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"augment": augmented}), flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "nms_sweep",

@@ -103,7 +103,8 @@ coco_refinedet = {
 class TrainConfig:
     """Training-recipe knobs (the train CLI's defaults). The compute dtype
     is the model's own (``build_refinedet(..., dtype=)``), so it has no
-    field here; the pixel mean belongs to the dataset's transform."""
+    field here. ``mean`` (BGR, as ``MEANS``) is read by the on-device
+    augmentation only; the host transforms carry their own."""
 
     batch_size: int = 32
     lr: float = 1e-3
@@ -119,7 +120,8 @@ class TrainConfig:
     max_boxes: int = 60  # static per-image GT padding
     grad_clip_norm: float = 0.0  # 0 = off (reference has no clipping)
     ema_decay: float = 0.0  # >0: keep an EMA of params (0 = off, like ref)
-    on_device_augment: bool = False  # fuse SSD augmentation into the step
+    on_device_augment: bool = False  # SSD augmentation inside the step
+    mean: Tuple[float, float, float] = (104.0, 117.0, 123.0)
     num_workers: int = 8
     worker_processes: bool = False  # spawn-based workers (vs threads)
     seed: int = 0

@@ -5,6 +5,12 @@ Used by ``chip_smoke.py`` (phase 6) and ``tests/test_torch_port_gpu.py``:
   * ``SyntheticDetection``: an in-memory dataset made from a numpy seed
     (mean-subtracted RGB images of pixel noise with 1-8 bright boxes each,
     normalized targets), so training runs without cv2 or image files;
+  * ``StagedSyntheticDetection``: the same images as the on-device
+    augmentation's host stage hands them on (uint8 RGB at the staging
+    size, boxes in staging pixels), made without cv2;
+  * ``crop_near_ties``: the images whose crop decision lies within a
+    tolerance of a threshold (the augmentation's counterpart of
+    ``separated_batch``'s margin);
   * ``separated_batch``: the first batch of a seed sequence on which a
     card-vs-CPU comparison of one step is well posed, i.e. no ODM match
     sits so close to a decision that the two devices' last-ulp
@@ -28,6 +34,7 @@ from torch import nn
 from refinedet_tpu_torch.boxes.codec import decode
 from refinedet_tpu_torch.boxes.geometry import jaccard
 from refinedet_tpu_torch.config import VOC_MEANS, TrainConfig
+from refinedet_tpu_torch.data.augment import Draws, crop_trials
 from refinedet_tpu_torch.data.collate import Batch, detection_collate
 from refinedet_tpu_torch.train.train_step import (create_train_state,
                                                   make_optimizer,
@@ -36,6 +43,25 @@ from refinedet_tpu_torch.train.train_step import (create_train_state,
 # A match decided by less than this (IoU against the threshold, or a GT's
 # best anchor against its second best) could differ between devices.
 MARGIN = 1e-4
+# A crop test decided by less than this (pixels, or h/w against 1/2 and 2)
+# could differ between devices.
+CROP_MARGIN = 1e-5
+
+
+def _painted(seed: int, i: int, size: int, num_classes: int
+             ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Item i of ``seed``: (image [size, size, 3] float32 BGR, pixel noise
+    in [0, 80) with k boxes of 220, boxes [k, 4] normalized point form,
+    labels [k] int32 in 1..num_classes-1), k in 1..8."""
+    rng = np.random.default_rng([seed, i])
+    img = rng.integers(0, 80, (size, size, 3)).astype(np.float32)
+    k = int(rng.integers(1, 9))
+    wh = rng.uniform(0.08, 0.5, (k, 2))
+    xy = rng.uniform(0.0, 1.0 - wh)
+    boxes = np.concatenate([xy, xy + wh], 1).astype(np.float32)
+    for x1, y1, x2, y2 in (boxes * size).astype(int):
+        img[y1:y2, x1:x2] = 220.0
+    return img, boxes, rng.integers(1, num_classes, k).astype(np.int32)
 
 
 class SyntheticDetection:
@@ -50,15 +76,7 @@ class SyntheticDetection:
         self.items = []
         mean = np.asarray(mean, np.float32)
         for i in range(n):
-            rng = np.random.default_rng([seed, i])
-            img = rng.integers(0, 80, (size, size, 3)).astype(np.float32)
-            k = int(rng.integers(1, 9))
-            wh = rng.uniform(0.08, 0.5, (k, 2))
-            xy = rng.uniform(0.0, 1.0 - wh)
-            boxes = np.concatenate([xy, xy + wh], 1).astype(np.float32)
-            for x1, y1, x2, y2 in (boxes * size).astype(int):
-                img[y1:y2, x1:x2] = 220.0
-            labels = rng.integers(1, num_classes, k).astype(np.int32)
+            img, boxes, labels = _painted(seed, i, size, num_classes)
             self.items.append((np.ascontiguousarray((img - mean)[..., ::-1]),
                                boxes, labels))
 
@@ -67,6 +85,42 @@ class SyntheticDetection:
 
     def __getitem__(self, i: int):
         return self.items[i]
+
+
+class StagedSyntheticDetection(SyntheticDetection):
+    """``SyntheticDetection``'s images as ``data.augment.StagingTransform``
+    hands them to the loader: item i is (image [size, size, 3] uint8 RGB,
+    boxes [k, 4] point form in staging pixels, labels), at ``size`` the
+    staging size. For ``TrainConfig(on_device_augment=True)``."""
+
+    def __init__(self, n: int, size: int = 640, num_classes: int = 21,
+                 seed: int = 0):
+        self.name = f"staged{n}"
+        self.items = []
+        for i in range(n):
+            img, boxes, labels = _painted(seed, i, size, num_classes)
+            self.items.append((np.ascontiguousarray(
+                img[..., ::-1].astype(np.uint8)), boxes * size, labels))
+
+
+def crop_near_ties(boxes: torch.Tensor, valid: torch.Tensor, draws: Draws,
+                   w: float, h: float) -> torch.Tensor:
+    """[B] bool: an image with a crop test within ``CROP_MARGIN`` of its
+    threshold, where a last-ulp difference upstream could flip the trial
+    taken or a kept box: a trial's h/w near 1/2 or 2, or a valid box's
+    center near an edge of a trial rect or of the whole canvas (the
+    center-keep rule). The IoU test never decides (its reference form
+    cannot fail with max_iou = inf), and the floors take the same float32
+    bits on every device."""
+    t = crop_trials(boxes, valid, draws, w, h)
+    aspect = torch.minimum((t.aspect - 0.5).abs(),
+                           (t.aspect - 2.0).abs()).amin(1)
+    rects = torch.cat([t.rects, t.canvas[:, None]], 1)  # [B, T + 1, 4]
+    cx, cy = t.centers[:, None, :, 0], t.centers[:, None, :, 1]
+    gap = torch.stack([(rects[..., i:i + 1] - c).abs() for i, c in
+                       ((0, cx), (1, cy), (2, cx), (3, cy))]).amin(0)
+    gap = torch.where(valid[:, None], gap, float("inf")).amin(-1).amin(-1)
+    return (aspect < CROP_MARGIN) | (gap < CROP_MARGIN)
 
 
 def _param_dtype(model) -> torch.dtype:

@@ -2,11 +2,15 @@
 
 The flags and defaults of the JAX package's ``train_refinedet.py`` (the
 reference's ``train_refinedet.py``), plus ``--device`` (the card unless
-``--device cpu``). Flow: dataset + SSDAugmentation -> build_refinedet
-(plain or ``--bn``, 320/512/896) -> optional pretrained backbone or full
-net -> Trainer (warmup + step lr, SGD with momentum and weight decay,
-checkpoints every 10 epochs, 5 after 200) -> ``<save_folder>/log.txt`` in
-the reference's log format -> ``<save_folder>/loss_curve.png``.
+``--device cpu``). Flow: dataset + SSDAugmentation on the host, or with
+``--on_device_augment`` (or ``--staging_size``) a StagingTransform to a
+uint8 canvas of ``--staging_size`` (default twice the input size) and the
+SSD chain on the card inside the step -> build_refinedet (plain or
+``--bn``, 320/512/896) -> optional pretrained backbone or full net ->
+Trainer (warmup + step lr, SGD with momentum and weight decay, checkpoints
+every 10 epochs, 5 after 200) -> ``<save_folder>/log.txt`` in the
+reference's log format -> ``<save_folder>/loss_curve.png``, and with
+``--visdom`` ``<save_folder>/live_loss.png`` while it trains.
 
 Flags of features the port does not have yet raise an error that names
 the ROADMAP.md item bringing them; none is ignored.
@@ -24,13 +28,14 @@ from refinedet_tpu_torch import config as C
 from refinedet_tpu_torch.config import TrainConfig
 from refinedet_tpu_torch.data import (COCODetection, SSDAugmentation,
                                       VOCDetection)
+from refinedet_tpu_torch.data.augment import StagingTransform
 from refinedet_tpu_torch.device import resolve_device
 from refinedet_tpu_torch.models import RefineDet, build_refinedet
 from refinedet_tpu_torch.models.convert import module_names
 from refinedet_tpu_torch.train.checkpoints import CheckpointManager
 from refinedet_tpu_torch.train.trainer import Trainer
 from refinedet_tpu_torch.utils import logger as log_util
-from refinedet_tpu_torch.utils.plot import plot_loss
+from refinedet_tpu_torch.utils.plot import LivePlotter, plot_loss
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -70,7 +75,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--on_device_augment", action="store_true",
                    help="run the SSD augmentation on the device")
     p.add_argument("--staging_size", default=0, type=int,
-                   help="staging canvas for --on_device_augment")
+                   help="staging canvas of the on-device augmentation "
+                        "(0 = twice the input size); setting it turns "
+                        "that augmentation on")
     p.add_argument("--grad_clip", default=0.0, type=float)
     p.add_argument("--ema_decay", default=0.0, type=float,
                    help="keep an EMA of the weights for serving (0 = off); "
@@ -78,7 +85,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--spatial_shards", default=1, type=int,
                    help="shard image height over devices")
     p.add_argument("--visdom", "--live_plot", dest="live_plot",
-                   action="store_true", help="live loss plot")
+                   action="store_true",
+                   help="live loss plot, <save_folder>/live_loss.png")
     p.add_argument("--device", default="cuda",
                    help="torch device; the card unless 'cpu' is asked for")
     return p.parse_args(argv)
@@ -87,14 +95,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 def refuse_unported(args: argparse.Namespace) -> None:
     """Raise for a flag whose feature the port does not have yet."""
     unported = [
-        (args.on_device_augment or args.staging_size,
-         "--on_device_augment/--staging_size",
-         "item 2 (on-device augmentation)"),
         (args.spatial_shards > 1, "--spatial_shards > 1",
          "item 5 (multi-GPU)"),
         (args.ngpu is not None and args.ngpu > 1, "--ngpu > 1",
          "item 5 (multi-GPU)"),
-        (args.live_plot, "--visdom", "item 8 (the rest: utils/plot)"),
     ]
     for asked, flag, item in unported:
         if asked:
@@ -154,7 +158,11 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     size = int(args.input_size)
     means = C.VOC_MEANS if args.dataset == "VOC" else C.MEANS
-    transform = SSDAugmentation(size, means)
+    on_device = args.on_device_augment or args.staging_size > 0
+    if on_device:
+        transform = StagingTransform(args.staging_size or 2 * size)
+    else:
+        transform = SSDAugmentation(size, means)
     if args.dataset == "VOC":
         root = args.dataset_root or C.VOC_ROOT
         dataset = VOCDetection(root, transform=transform, seed=args.seed)
@@ -173,9 +181,11 @@ def main(argv: Optional[List[str]] = None) -> None:
         weight_decay=args.weight_decay, gamma=args.gamma,
         max_epoch=args.max_epoch, num_workers=args.num_workers,
         worker_processes=args.worker_processes, seed=args.seed,
-        grad_clip_norm=args.grad_clip, ema_decay=args.ema_decay)
+        grad_clip_norm=args.grad_clip, ema_decay=args.ema_decay,
+        on_device_augment=on_device, mean=tuple(means))
+    live = LivePlotter(args.save_folder) if args.live_plot else None
     trainer = Trainer(model, dataset, cfg, save_folder=args.save_folder,
-                      dataset_name=args.dataset)
+                      dataset_name=args.dataset, live_plotter=live)
 
     start_epoch = 0
     state = None

@@ -10,11 +10,14 @@ over every parameter with the lr of the step count before the step:
 
     [clip_by_global_norm] -> add_decayed_weights -> trace -> scale_by_lr
 
-and optionally the serving-side EMA of the weights. The BN variant's
-running statistics are buffers of the net, updated by the forward; the
-EMA, like the JAX package's ``ema_params``, covers parameters only (BN
-scale and bias included, running statistics not). Nothing in the step
-waits on the host: metrics come back as device scalars.
+and optionally the serving-side EMA of the weights. With
+``on_device_augment`` the step first runs the SSD augmentation on the
+staged batch (``data/augment.py``), with draws from a generator keyed by
+(seed, step). The BN variant's running statistics are buffers of the net,
+updated by the forward; the EMA, like the JAX package's ``ema_params``,
+covers parameters only (BN scale and bias included, running statistics
+not). Nothing in the step waits on the host: metrics come back as device
+scalars.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ import torch
 from torch import nn
 
 from refinedet_tpu_torch.config import TrainConfig
+from refinedet_tpu_torch.data.augment import (augment_batch, sample_draws,
+                                              step_generator)
 from refinedet_tpu_torch.losses.multibox import refinedet_multibox_loss
 
 Metrics = Dict[str, torch.Tensor]
@@ -143,14 +148,19 @@ def make_train_step(model, optimizer: SGD, train_cfg: TrainConfig
     metrics). ``model`` is a train-phase RefineDetModel whose ``net`` the
     ``optimizer`` updates in place; images NHWC float32, boxes [B, M, 4]
     normalized point form, labels [B, M] 1-based, valid [B, M] bool, all
-    on the model's device."""
-    if train_cfg.on_device_augment:
-        raise NotImplementedError(
-            "on-device augmentation is not ported yet (ROADMAP.md §1, "
-            "item 2)")
+    on the model's device. With ``train_cfg.on_device_augment`` the images
+    are the staged ones (uint8 or float32 RGB at pixel scale, any square
+    size) and the boxes are in staging pixels: step t augments them with
+    ``sample_draws(step_generator(seed, t))`` and ``train_cfg.mean``."""
     ema_decay = float(train_cfg.ema_decay)
 
     def step(state: TrainState, images, boxes, labels, valid):
+        if train_cfg.on_device_augment:
+            draws = sample_draws(step_generator(
+                train_cfg.seed, state.step, images.device), images.shape[0])
+            images, boxes, valid = augment_batch(
+                images, boxes, valid, draws, out_size=model.size,
+                mean=train_cfg.mean)
         optimizer.zero_grad(set_to_none=True)
         # Train mode: the BN variant normalises with the batch statistics
         # and moves its running ones, as the JAX step's mutable

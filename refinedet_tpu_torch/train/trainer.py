@@ -4,9 +4,10 @@ Port of ``refinedet_tpu/train/trainer.py`` (single device; multi-GPU comes
 later): the epoch loop over the prefetching loader, warmup + step lr,
 per-iteration loss logging in the reference's log line format, epoch
 checkpoints (every 10, every 5 after epoch 200), resume, and a preemption
-checkpoint on SIGTERM/SIGINT. The loader's producer thread checks the
-targets and stages each batch on the device; the loop only launches steps
-and logs.
+checkpoint on SIGTERM/SIGINT, and an optional live loss plot. The
+loader's producer thread checks the targets and stages each batch on the
+device (uint8 staged images stay uint8); the loop only launches steps and
+logs.
 """
 
 from __future__ import annotations
@@ -35,7 +36,10 @@ class Trainer:
     def __init__(self, model, dataset, train_cfg: TrainConfig,
                  save_folder: Optional[str] = None,
                  dataset_name: str = "COCO",
-                 log_fn: Callable[[str], None] = print):
+                 log_fn: Callable[[str], None] = print,
+                 live_plotter=None):
+        """``live_plotter`` (a ``utils.plot.LivePlotter``, or None) gets
+        every logged step's losses and each epoch's end."""
         if train_cfg.spatial_shards > 1:
             raise NotImplementedError(
                 "spatial sharding needs several GPUs, which are not ported "
@@ -44,6 +48,7 @@ class Trainer:
         self.cfg = train_cfg
         self.dataset = dataset
         self.log = log_fn
+        self.live_plotter = live_plotter
         self._preempted = False
 
         # Target validation and the copy to the device both run in the
@@ -124,7 +129,11 @@ class Trainer:
 
     def _validate_batch(self, batch) -> None:
         """Target sanity guard (the reference's coordinate check), raising
-        a descriptive error instead of silently ending the iteration."""
+        a descriptive error instead of silently ending the iteration.
+        Skipped with on-device augmentation: its targets are staging
+        pixels."""
+        if self.cfg.on_device_augment:
+            return
         coords = batch.boxes[batch.valid]
         if coords.size and (coords.min() < -1e-3 or coords.max() > 1 + 1e-3):
             raise ValueError(
@@ -193,6 +202,8 @@ class Trainer:
                 f"loss: {metrics['loss']:.4f} || "
                 f"LR: {lr:.8f} || Batchtime: {bt:.4f} s || "
                 f"ETA: {datetime.timedelta(seconds=eta)}")
+            if self.live_plotter is not None:
+                self.live_plotter.update(it, metrics)
 
         restore_signals = self._install_preemption_handler()
         try:
@@ -208,6 +219,11 @@ class Trainer:
                     if pending is not None:
                         flush(pending)
                     pending = (iteration, epoch, metrics)
+                if self.live_plotter is not None:
+                    if pending is not None:
+                        flush(pending)
+                        pending = None
+                    self.live_plotter.end_epoch(epoch)
                 if self._preempted:
                     if pending is not None:
                         flush(pending)

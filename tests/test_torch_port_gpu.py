@@ -1,8 +1,9 @@
 """Card-only tests of the port: kernel K1 against its plain version, the
 CUDA serving path against the CPU one, the training slice (matcher,
 losses, one train step, Trainer resume, the BN variant's train-mode
-forward) on the card against the CPU, and
-the eval slice (the eval post-process and the Evaluator, kernel path
+forward) on the card against the CPU, on-device augmentation (the card
+against the CPU on the same draws; the augmenting step makes no host
+wait), and the eval slice (the eval post-process and the Evaluator, kernel path
 against plain path; no host sync inside a batch; the host NMS library).
 
 They skip without a CUDA card. On the card::
@@ -24,6 +25,8 @@ from refinedet_tpu_torch.boxes.codec import decode
 from refinedet_tpu_torch.config import (MEANS, VOC_MEANS, DetectConfig,
                                         TrainConfig)
 from refinedet_tpu_torch.data import BaseTransform
+from refinedet_tpu_torch.data.augment import augment_batch, sample_draws, \
+    select_crop
 from refinedet_tpu_torch.data.loader import wait_for_copy
 from refinedet_tpu_torch.data.collate import detection_collate
 from refinedet_tpu_torch.detect.detection import detect_refinedet
@@ -40,6 +43,8 @@ from refinedet_tpu_torch.serve.export import (fused_nms_settings,
 from refinedet_tpu_torch.tools.eval_check import (SyntheticSSDD,
                                                   SyntheticVOC)
 from refinedet_tpu_torch.tools.train_check import (SyntheticDetection,
+                                                   StagedSyntheticDetection,
+                                                   crop_near_ties,
                                                    one_step,
                                                    separated_batch,
                                                    update_rel_errors)
@@ -314,6 +319,59 @@ def test_train_step_never_waits_for_the_card(cuda, dtype):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert np.isfinite(float(metrics["loss"]))
+
+
+def test_augmented_train_step_never_waits_for_the_card(cuda):
+    """With on-device augmentation (uint8 staged at 640) the step, the
+    draws and the augmentation included, makes no blocking copy and no
+    synchronization."""
+    model = build_refinedet("train", 320, 21, device=cuda,
+                            dtype=torch.bfloat16)
+    data = StagedSyntheticDetection(2, 640, seed=4)
+    batch = [torch.from_numpy(a).to(cuda) for a in detection_collate(
+        [data[i] for i in range(2)], 60)]
+    assert batch[0].dtype == torch.uint8
+    cfg = TrainConfig(max_boxes=60, grad_clip_norm=10.0,
+                      on_device_augment=True, mean=VOC_MEANS)
+    opt = make_optimizer(model.net.parameters(), lambda t: 1e-3,
+                         grad_clip_norm=10.0)
+    step = make_train_step(model, opt, cfg)
+    state = create_train_state(model, opt)
+    state, _ = step(state, *batch)  # warm-up: lazy init may sync once
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            state, metrics = step(state, *batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert state.step == 3 and np.isfinite(float(metrics["loss"]))
+
+
+def test_augment_batch_on_card_matches_cpu(cuda):
+    """The same draws and staged images on both devices: images 1e-3
+    absolute on the 0-255 scale (the resample's sums), boxes 1e-5, the
+    trial taken and the kept boxes exact away from a crop test within
+    1e-5 of its threshold."""
+    data = StagedSyntheticDetection(6, 640, seed=5)
+    b = detection_collate([data[i] for i in range(6)], 60)
+    cpu = [torch.from_numpy(a) for a in b]
+    card = [t.to(cuda) for t in cpu]
+    draws = sample_draws(torch.Generator().manual_seed(1), 6)
+    want = augment_batch(cpu[0], cpu[1], cpu[3], draws, 320, VOC_MEANS)
+    got = augment_batch(card[0], card[1], card[3], draws.to(cuda), 320,
+                        VOC_MEANS)
+    differ = ((select_crop(card[1], card[3], draws.to(cuda), 640.0, 640.0)
+               .trial.cpu()
+               != select_crop(cpu[1], cpu[3], draws, 640.0, 640.0).trial)
+              | (got[2].cpu() != want[2]).any(1))
+    near = crop_near_ties(cpu[1], cpu[3], draws, 640.0, 640.0)
+    assert not (differ & ~near).any()
+    same = ~differ
+    torch.testing.assert_close(got[0].cpu()[same], want[0][same], rtol=0,
+                               atol=1e-3)
+    torch.testing.assert_close(got[1].cpu()[same], want[1][same], rtol=0,
+                               atol=1e-5)
 
 
 def test_trainer_resume_on_card(cuda, tmp_path):

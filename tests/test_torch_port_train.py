@@ -9,7 +9,11 @@ parameter's update a relative L2 norm of 2e-2 (the reference-parity
 tolerance; oneDNN and XLA sum the convolutions in different orders); a
 resumed optimizer step with new hyperparameters, each update a relative
 L2 norm of 1e-4 and the momentum buffers rtol 1e-5; the host data
-pipeline bit for bit.
+pipeline bit for bit. The augmented step (on-device augmentation from
+staging 640, then the same step) against JAX's on JAX's augmented batch:
+the augmented images 2e-2 absolute (JAX's own float32 error there), boxes
+1e-6, losses rtol 2e-4; the port's augmenting step against
+augment-then-step: bitwise.
 """
 
 import importlib.util
@@ -29,6 +33,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from refinedet_tpu.config import TrainConfig as JTrainConfig  # noqa: E402
+from refinedet_tpu.data import augment_jax  # noqa: E402
 from refinedet_tpu.data import augmentations as jaug  # noqa: E402
 from refinedet_tpu.data.loader import DataLoader as JDataLoader  # noqa: E402
 from refinedet_tpu.models import build_refinedet as jbuild  # noqa: E402
@@ -40,10 +45,13 @@ from refinedet_tpu.train import make_train_step as jmake_step  # noqa: E402
 from refinedet_tpu.train.train_step import TrainState as JState  # noqa: E402
 from refinedet_tpu.utils.plot import _LOG_RE  # noqa: E402
 
-from refinedet_tpu_torch.config import TrainConfig  # noqa: E402
+from refinedet_tpu_torch.config import MEANS, TrainConfig  # noqa: E402
 from refinedet_tpu_torch.data import (BaseTransform,  # noqa: E402
                                       COCODetection, DataLoader,
                                       SSDAugmentation)
+from refinedet_tpu_torch.data.augment import (StagingTransform,  # noqa: E402
+                                              augment_batch, sample_draws,
+                                              step_generator)
 from refinedet_tpu_torch.models import (RefineDet,  # noqa: E402
                                         build_refinedet,
                                         state_dict_from_flax)
@@ -53,8 +61,10 @@ from refinedet_tpu_torch.train import (CheckpointManager,  # noqa: E402
                                        make_train_step)
 from refinedet_tpu_torch.train import __main__ as cli  # noqa: E402
 from refinedet_tpu_torch.train.train_step import ema_update_  # noqa: E402
+from refinedet_tpu_torch.utils.plot import LivePlotter  # noqa: E402
 
 from data_fixtures import make_coco_dataset  # noqa: E402
+from test_torch_port_augment import replay, staged_batch  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
 NUM_CLASSES = 3
@@ -153,28 +163,46 @@ def _batch(seed):
 
 
 @pytest.fixture(scope="module")
-def two_steps():
-    """Two steps of each package from the same weights (the JAX init of
-    PRNGKey(0), carried across by state_dict_from_flax) on the same two
-    batches. Returns the initial state_dict and, per step, (JAX metrics,
-    JAX params and EMA as state_dicts, port metrics, port params and EMA),
-    plus the port's model and state after two steps."""
+def jax_step():
+    """The JAX step of ``STEP_CFG`` (compiled once for the module) and a
+    function giving a fresh JAX state and a port model, both at the JAX
+    init of PRNGKey(0), carried across by state_dict_from_flax."""
     jmodel = jbuild("train", 320, NUM_CLASSES)
     params0 = jax.tree.map(np.array, jmodel.init(jax.random.PRNGKey(0))
                            ["params"])
     tx = joptimizer(lambda t: LR, grad_clip_norm=STEP_CFG["grad_clip_norm"])
-    jstate = JState(step=jnp.zeros((), jnp.int32), params=params0,
-                    opt_state=tx.init(params0), batch_stats=None,
-                    ema_params=jax.tree.map(np.copy, params0))
     jstep = jmake_step(jmodel, tx, JTrainConfig(**STEP_CFG))
 
-    model = build_refinedet("train", 320, NUM_CLASSES, device="cpu")
-    model.net.load_state_dict(state_dict_from_flax(params0), strict=True)
-    sd0 = {k: v.clone() for k, v in model.net.state_dict().items()}
+    def fresh():
+        jstate = JState(step=jnp.zeros((), jnp.int32), params=params0,
+                        opt_state=tx.init(params0), batch_stats=None,
+                        ema_params=jax.tree.map(np.copy, params0))
+        model = build_refinedet("train", 320, NUM_CLASSES, device="cpu")
+        model.net.load_state_dict(state_dict_from_flax(params0),
+                                  strict=True)
+        return jstate, model
+
+    return jstep, fresh
+
+
+def _port_step(model, **cfg):
     opt = make_optimizer(model.net.parameters(), lambda t: LR,
                          grad_clip_norm=STEP_CFG["grad_clip_norm"])
     state = create_train_state(model, opt, ema=True)
-    step = make_train_step(model, opt, TrainConfig(**STEP_CFG))
+    return state, make_train_step(model, opt,
+                                  TrainConfig(**{**STEP_CFG, **cfg}))
+
+
+@pytest.fixture(scope="module")
+def two_steps(jax_step):
+    """Two steps of each package from the same weights on the same two
+    batches. Returns the initial state_dict and, per step, (JAX metrics,
+    JAX params and EMA as state_dicts, port metrics, port params and EMA),
+    plus the port's model and state after two steps."""
+    jstep, fresh = jax_step
+    jstate, model = fresh()
+    sd0 = {k: v.clone() for k, v in model.net.state_dict().items()}
+    state, step = _port_step(model)
 
     steps = []
     for seed in (0, 1):
@@ -215,6 +243,65 @@ def test_full_steps_match_make_train_step(two_steps, n):
                                    atol=1e-6, err_msg=name)
         checked += 1
     assert checked > 50  # every conv weight and bias + the L2Norm scales
+
+
+def test_augmented_step_matches_jax(jax_step):
+    """JAX's augment_batch(fold_in(PRNGKey(seed), 0)) into the JAX step,
+    and the port's augment_batch on the replayed draws into the port's
+    step, from the same weights: the same losses. The JAX step is the
+    module's (``STEP_CFG``: clip 1.0), reused rather than compiled anew;
+    a step's losses do not depend on its clip. Then the port's step
+    with ``on_device_augment`` at step t is augment_batch on
+    ``sample_draws(step_generator(seed, t))`` followed by the plain step,
+    bit for bit."""
+    jstep, fresh = jax_step
+    seed, mean = 3, MEANS
+    images, boxes, labels, valid = staged_batch(0, NUM_CLASSES)
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), 0)
+    jimg, jboxes, jvalid = augment_jax.augment_batch(
+        jnp.asarray(images), jnp.asarray(boxes), jnp.asarray(valid), key,
+        out_size=320, mean=mean)
+    jstate, model = fresh()
+    _, jmetrics = jstep(jstate, jimg, jboxes, jnp.asarray(labels), jvalid)
+
+    t = [torch.from_numpy(a) for a in (images, boxes, labels, valid)]
+    img, nb, nv = augment_batch(t[0], t[1], t[3],
+                                replay(jax.random.split(key, 2)), 320, mean)
+    # JAX's fused program is itself ~1.4e-2 from a float64 evaluation of
+    # the chain on this batch, the port's ~1.4e-4
+    # (test_torch_port_augment.test_augment_batch_float32_accuracy).
+    np.testing.assert_allclose(img.numpy(), np.asarray(jimg), rtol=0,
+                               atol=2e-2)
+    np.testing.assert_allclose(nb.numpy(), np.asarray(jboxes), rtol=0,
+                               atol=1e-6)
+    assert torch.equal(nv, torch.from_numpy(np.array(jvalid)))
+    state, step = _port_step(model)
+    _, metrics = step(state, img, nb, t[2], nv)
+    for k, want in jmetrics.items():
+        np.testing.assert_allclose(float(metrics[k]), float(want),
+                                   rtol=2e-4, err_msg=k)
+    assert float(metrics["num_pos_odm"]) > 0
+
+    # the augmenting step at step 5 against augment-then-step
+    at = 5
+    _, model_a = fresh()
+    state_a, step_a = _port_step(model_a, on_device_augment=True,
+                                 seed=seed, mean=mean)
+    state_a.step = at
+    state_a, metrics_a = step_a(state_a, *t)
+    _, model_b = fresh()
+    state_b, step_b = _port_step(model_b)
+    state_b.step = at
+    img, nb, nv = augment_batch(
+        t[0], t[1], t[3], sample_draws(step_generator(seed, at, "cpu"), 2),
+        320, mean)
+    state_b, metrics_b = step_b(state_b, img, nb, t[2], nv)
+    assert state_a.step == state_b.step == at + 1
+    for k, v in metrics_b.items():
+        assert torch.equal(metrics_a[k], v), k
+    for (k, a), b in zip(model_a.net.state_dict().items(),
+                         model_b.net.state_dict().values()):
+        assert torch.equal(a, b), k
 
 
 def test_checkpoint_round_trip(two_steps, tmp_path):
@@ -419,6 +506,15 @@ def test_trainer_target_guard(tmp_path):
         trainer.train()
 
 
+class _Staged(_Toy):
+    """_Toy's boxes in pixels of a uint8 8x8 canvas, as StagingTransform
+    stages them."""
+
+    def __getitem__(self, i):
+        img, boxes, labels = super().__getitem__(i)
+        return img.astype(np.uint8), boxes * 8.0, labels
+
+
 def test_trainer_cadence_and_unported_options(tmp_path):
     model = build_refinedet("train", 320, 2, device="cpu")
     trainer = Trainer(model, _Toy(4), TrainConfig(batch_size=2, num_workers=0),
@@ -430,8 +526,47 @@ def test_trainer_cadence_and_unported_options(tmp_path):
     assert saved == [10 * k for k in range(1, 21)] + [205, 210, 215, 220]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Trainer(model, _Toy(4), TrainConfig(spatial_shards=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Trainer(model, _Toy(4), TrainConfig(on_device_augment=True))
+    # On-device augmentation is taken: the target guard is skipped
+    # (staging pixels are not in [0, 1]) and uint8 stays uint8.
+    staged = Trainer(model, _Staged(4), TrainConfig(
+        batch_size=2, num_workers=0, on_device_augment=True))
+    batches = [sb.wait() for sb in staged.loader]
+    assert len(batches) == 2
+    assert all(b.images.dtype == torch.uint8 for b in batches)
+    assert float(batches[0].boxes.max()) > 1
+    with pytest.raises(ValueError, match=r"outside \[0, 1\]"):
+        next(iter(Trainer(model, _Staged(4), TrainConfig(
+            batch_size=2, num_workers=0)).loader))
+
+
+def test_trainer_feeds_the_live_plotter(tmp_path):
+    """Two epochs of three steps, the step replaced (nothing trains): the
+    plotter gets every step's losses and each epoch's end, and renders
+    live_loss.png."""
+    import dataclasses
+    plotter = LivePlotter(str(tmp_path), render_every=4)
+    trainer = Trainer(build_refinedet("train", 320, 2, device="cpu"),
+                      _Toy(6), TrainConfig(batch_size=2, num_workers=0,
+                                           max_epoch=2),
+                      log_fn=lambda line: None, live_plotter=plotter)
+    keys = ("loss", "arm_loss_l", "arm_loss_c", "odm_loss_l", "odm_loss_c")
+
+    def fake_step(state, *batch):
+        value = torch.tensor(1.0 / (state.step + 1))
+        return (dataclasses.replace(state, step=state.step + 1),
+                {k: value for k in keys})
+
+    trainer.train_step = fake_step
+    trainer.train()
+    assert plotter.iters == [1, 2, 3, 4, 5, 6]
+    np.testing.assert_allclose(plotter.series["loss"],
+                               [1 / (i + 1) for i in range(6)], rtol=1e-6)
+    assert plotter.epochs == [1, 2]
+    np.testing.assert_allclose(plotter.epoch_series["loss"],
+                               [(1 + 1 / 2 + 1 / 3) / 3,
+                                (1 / 4 + 1 / 5 + 1 / 6) / 3], rtol=1e-6)
+    if importlib.util.find_spec("matplotlib") is not None:
+        assert (tmp_path / "live_loss.png").stat().st_size > 0
 
 
 # -- the host data pipeline ---------------------------------------------------
@@ -507,14 +642,44 @@ def test_cli_trains_and_resumes_on_cpu(tiny_coco, tmp_path):
     assert torch.load(str(final), weights_only=True)["step"] == 2
 
 
-@pytest.mark.parametrize("flags", [
-    ["--on_device_augment"], ["--staging_size", "640"],
-    ["--spatial_shards", "2"], ["--ngpu", "2"], ["--visdom"]])
+@pytest.mark.parametrize("flags", [["--spatial_shards", "2"],
+                                   ["--ngpu", "2"]])
 def test_cli_refuses_unported_flags(flags, tmp_path):
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1, item"):
         cli.main(flags + ["--device", "cpu", "--save_folder",
                           str(tmp_path)])
     assert not os.listdir(tmp_path)  # refused before anything was written
+
+
+@pytest.mark.parametrize("flags,staging,live", [
+    (["--on_device_augment"], 1024, False),
+    (["--staging_size", "640"], 640, False),
+    (["--visdom"], None, True)],
+    ids=["on_device_augment", "staging_size", "visdom"])
+def test_cli_takes_up_augment_and_plot_flags(flags, staging, live, tiny_coco,
+                                             tmp_path, monkeypatch):
+    """``--on_device_augment`` stages at twice the input size (512 by
+    default), ``--staging_size`` at its own and turns the on-device
+    augmentation on; either sets ``TrainConfig.on_device_augment`` and the
+    dataset's mean. ``--visdom`` hands a LivePlotter to the Trainer
+    (whose ``train`` is replaced: nothing trains)."""
+    handed = []
+    monkeypatch.setattr(Trainer, "train",
+                        lambda self, state, start_epoch: handed.append(self))
+    cli.main(flags + ["--device", "cpu", "--dataset_root", tiny_coco,
+                      "--num_workers", "0", "--save_folder", str(tmp_path)])
+    (trainer,) = handed
+    transform = trainer.dataset.transform
+    if staging is None:
+        assert isinstance(transform, SSDAugmentation)
+    else:
+        assert isinstance(transform, StagingTransform)
+        assert transform.size == staging
+    assert trainer.cfg.on_device_augment == (staging is not None)
+    assert trainer.cfg.mean == tuple(MEANS)
+    assert isinstance(trainer.live_plotter, LivePlotter) == live
+    if live:
+        assert trainer.live_plotter.out_dir == str(tmp_path)
 
 
 @pytest.mark.parametrize("flags,size,use_bn", [
