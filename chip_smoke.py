@@ -94,7 +94,23 @@ non-zero exit and no result line:
      time to issue ``augment_batch`` and the step (no sync), the bytes
      copied to the card per batch, the augmented Trainer's images/s end to
      end and its feed's alone (host clock, as 6d), and ``augment_batch``
-     at 896's staging of 1792, batch 8. K1 must not be launched.
+     at 896's staging of 1792, batch 8. K1 must not be launched;
+ 10. the serving artifact (``serve/export.py``), exported on the card with
+     fused NMS and a symbolic batch, written and loaded back in this
+     process: (a) RefineDet320 (VOC, 21 classes) in bf16 and f32 equal
+     ``make_serving_fn`` exactly at batches 1, 8 and 32; the file holds
+     the weights once and the loaded conv weights stay NHWC; (b) the bf16
+     artifact behind ``BatchingEngine`` and ``Server``, one CUDA graph per
+     bucket captured at warm-up, each replay equal to the eager artifact
+     exactly and counting one K1 launch, then requests from several client
+     threads and over HTTP: K1 once per device batch; (c) RefineDet896-BN
+     (2 classes) in bf16 with the uint8 wire and the SSDD mean 98.13131
+     equal to the live function exactly at batch 8; (d) beside the card's
+     name and power limit, per batch of 32 at 320 and of 8 at 896-BN: the
+     live function, the artifact eager and the graph replay, each end to
+     end (host clock), on the device (CUDA events, card preloaded) and the
+     share outside the device; export, save, load and capture seconds and
+     the file's MB.
 
 The line before the last is the card's name and power limit from
 nvidia-smi; the last is {"ok": true, "device": {...}}. TF32 is off for
@@ -107,6 +123,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -150,6 +167,9 @@ BN_SERVE_CALLS = 4        # 8b: serving batches on the main path
 STAGING = 640             # 9: the on-device augmentation's canvas, 2 x 320
 AUG_CHECK_BATCH = 8       # 9a: card against CPU
 BN_STAGING = 1792         # 9c: 2 x 896
+ARTIFACT_BATCHES = (1, 8, 32)  # 10a: artifact against the live function
+ARTIFACT_REPS = 10        # 10d: timed calls of each path
+ARTIFACT_SPIN_MS = 50     # 10d: card spin before each device-timed call
 LOSS_KEYS = ("arm_loss_l", "arm_loss_c", "odm_loss_l", "odm_loss_c")
 LOG_LOSSES = re.compile(r"ARM_L Loss: (\S+) ARM_C Loss: (\S+) ODM_L Loss: "
                         r"(\S+) ODM_C Loss: (\S+) loss: (\S+) \|\|")
@@ -199,6 +219,35 @@ def host_ms(fn, reps: int, warmup: int = 2) -> float:
     for _ in range(reps):
         fn()
     return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def spin_cycles(ms: float) -> int:
+    """Cycles of ``torch.cuda._sleep`` that hold the card ~``ms``."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10 ** 7)
+    end.record()
+    torch.cuda.synchronize()
+    return int(10 ** 7 / start.elapsed_time(end) * ms)
+
+
+def device_ms(fn, reps: int, cycles: int) -> float:
+    """Mean device time of ``fn()`` alone (CUDA events), the card held in
+    a spin of ``cycles`` before each call, so the host has issued all of
+    it before the card starts: the card's work, not its waits."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for i in range(reps + 1):  # the first is a warm-up
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end) if i else 0.0
+    return total / reps
 
 
 class Cycled:
@@ -339,13 +388,7 @@ def train_phase(dev: torch.device, folder: str) -> dict:
         f"{TRAIN_BATCH} (convolutions: forward, and 2x for backward)")
     e2e_data = Cycled(SyntheticDetection(3 * TRAIN_BATCH, SIZE, NUM_CLASSES,
                                          seed=200), E2E_STEPS * TRAIN_BATCH)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    torch.cuda._sleep(10 ** 7)
-    end.record()
-    torch.cuda.synchronize()
-    preload_cycles = int(10 ** 7 / start.elapsed_time(end) * PRELOAD_MS)
+    preload_cycles = spin_cycles(PRELOAD_MS)
     for dtype, peak in ((torch.float32, H100_F32_OPS_PER_S),
                         (bf16, H100_BF16_OPS_PER_S)):
         name = "f32" if dtype == torch.float32 else "bf16"
@@ -1019,6 +1062,248 @@ def augment_phase(dev: torch.device, smi: str, plain: dict) -> dict:
     return out
 
 
+def serve_requests(engine, server, requests, label: str) -> tuple:
+    """Drive ``server``: the last HTTP_REQUESTS of ``requests`` over HTTP,
+    the others from 4 client threads through ``engine``, K1's count set
+    to 0 just before and read just after. Checks every answer (no error,
+    fused dets of the expected shape, finite) and returns (answers by
+    request, the engine's stats, K1's launches)."""
+    from refinedet_tpu_torch.ops import nms_cuda
+    from refinedet_tpu_torch.serve import client_detect
+
+    n_engine = len(requests) - HTTP_REQUESTS
+    results, errors = {}, []
+
+    def client(tid):
+        try:
+            futs = [(i, engine.submit(requests[i]))
+                    for i in range(tid, n_engine, 4)]
+            for i, f in futs:
+                results[i] = f.result(timeout=300)[0]
+        except Exception as e:  # noqa: BLE001 - reported and checked below
+            errors.append(repr(e))
+
+    wire = "u1" if requests.dtype == np.uint8 else "<f4"
+    nms_cuda.nms_sweep.launches = 0
+    server.start()
+    try:
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(4)]
+        for t in threads:
+            t.start()
+        for i in range(n_engine, len(requests)):
+            (results[i],) = client_detect("127.0.0.1", server.port,
+                                          requests[i], timeout=300,
+                                          dtype=wire)
+        for t in threads:
+            t.join(timeout=600)
+            check(not t.is_alive(), f"{label}: a client thread did not "
+                  "finish")
+        stats = engine.stats()
+    finally:
+        server.stop()
+    launches = nms_cuda.nms_sweep.launches
+    log(label, f"stats {json.dumps(stats)}")
+    check(not errors, f"{label}: client errors: {errors}")
+    check(stats["errors"] == 0, f"{label}: engine errors: {stats['errors']}")
+    n_req = len(requests)
+    check(len(results) == n_req and stats["requests"] == n_req,
+          f"{label}: {len(results)} results, {stats['requests']} served of "
+          f"{n_req}")
+    for i, dets in results.items():
+        check(dets.shape == (NUM_CLASSES - 1, NMS_TOP_K, 5),
+              f"{label}: request {i}: dets shape {dets.shape}")
+        check(bool(np.isfinite(dets).all()),
+              f"{label}: request {i}: non-finite")
+    return results, stats, launches
+
+
+def artifact_phase(dev: torch.device, smi: str, rng) -> tuple:
+    """Phase 10: the serving artifact on the card; returns its numbers and
+    K1's launches on its main path (10b: the engine and the HTTP server
+    answering through the artifact, each bucket replaying its graph)."""
+    from refinedet_tpu_torch.config import MEANS
+    from refinedet_tpu_torch.models import build_refinedet, \
+        build_refinedet_bn
+    from refinedet_tpu_torch.ops import nms_cuda
+    from refinedet_tpu_torch.serve import (BatchingEngine, Server,
+                                           load_serving, make_serving_fn)
+    from refinedet_tpu_torch.serve.export import (export_inference,
+                                                  inference_module,
+                                                  serving_metadata,
+                                                  write_serving)
+    from refinedet_tpu_torch.tools.k1_bench import noise_images
+
+    out = {"card": smi}
+    bf16 = torch.bfloat16
+    folder = tempfile.mkdtemp(prefix="chip_smoke_artifacts_")
+
+    def artifact(model, name, **wire):
+        """Export on the card, write, load in this process."""
+        path = os.path.join(folder, f"{name}.rdtpu")
+        t0 = time.perf_counter()
+        program = export_inference(model, fused_nms={}, **wire)
+        t1 = time.perf_counter()
+        write_serving(path, program,
+                      serving_metadata(model, None, {}, **wire))
+        t2 = time.perf_counter()
+        serving = load_serving(path)
+        t3 = time.perf_counter()
+        mb = os.path.getsize(path) / 1e6
+        weights_mb = sum(t.numel() * t.element_size() for t in
+                         model.net.state_dict().values()) / 1e6
+        nhwc = [p.is_contiguous(memory_format=torch.channels_last)
+                for p in serving.module.parameters() if p.dim() == 4]
+        info = {"export_s": t1 - t0, "save_s": t2 - t1, "load_s": t3 - t2,
+                "file_mb": mb, "weights_mb": weights_mb}
+        log("artifact", f"{name}: export {t1 - t0:.2f} s, save "
+            f"{t2 - t1:.2f} s, load {t3 - t2:.2f} s; {mb:.1f} MB for "
+            f"{weights_mb:.1f} MB of weights; {sum(nhwc)} of {len(nhwc)} "
+            f"conv weights NHWC after the load; meta "
+            f"{json.dumps(serving.meta, sort_keys=True)}")
+        check(serving.meta["device"] == str(model.priors.device) != "cpu",
+              f"{name}: exported for {serving.meta['device']}")
+        check(mb < 1.05 * weights_mb + 5, f"{name}: {mb:.1f} MB written "
+              f"for {weights_mb:.1f} MB of weights (stored twice?)")
+        check(all(nhwc), f"{name}: the loaded conv weights lost NHWC")
+        return serving, info
+
+    # -- 10a. RefineDet320 bf16 and f32 artifacts against the live function -
+    for dtype in (bf16, torch.float32):
+        name = "bf16" if dtype == bf16 else "f32"
+        model = build_refinedet("test", SIZE, NUM_CLASSES, dtype=dtype,
+                                device=dev, seed=0)
+        serving, info = artifact(model, f"refinedet320_{name}")
+        live = make_serving_fn(model, None, fused_nms={})
+        kept = []
+        for b in ARTIFACT_BATCHES:
+            imgs = noise_images(rng, b)
+            got, want = serving(imgs), live(imgs)
+            check(got.shape == (b, NUM_CLASSES - 1, NMS_TOP_K, 5),
+                  f"10a: {name} dets {got.shape}")
+            check(np.array_equal(got, want), f"10a: the {name} artifact "
+                  f"differs from the live function at batch {b} (max abs "
+                  f"err {np.abs(got - want).max()})")
+            kept.append(int((got[..., 4] > 0).sum()))
+        log("artifact", f"10a: RefineDet320 {name} artifact (symbolic "
+            f"batch) equals make_serving_fn exactly at batches "
+            f"{list(ARTIFACT_BATCHES)} ({kept} detections)")
+        out[f"320_{name}"] = info
+        if dtype == bf16:
+            m320, s320, live320 = model, serving, live
+        else:
+            del model, serving, live
+    torch.cuda.empty_cache()
+
+    # -- 10b. the bf16 artifact behind the engine and the server ------------
+    engine = BatchingEngine(s320, (SIZE, SIZE, 3), max_batch=MAX_BATCH,
+                            max_delay_ms=20.0,
+                            input_dtype=s320.input_dtype)
+    t0 = time.perf_counter()
+    s320.warm_up(engine.buckets)
+    out["320_bf16"]["capture_s"] = time.perf_counter() - t0
+    check(sorted(s320.graphs) == list(engine.buckets),
+          f"10b: graphs for {sorted(s320.graphs)}")
+    for b in engine.buckets:
+        imgs = noise_images(rng, b)
+        before = nms_cuda.nms_sweep.launches
+        got = s320(imgs)
+        check(nms_cuda.nms_sweep.launches == before + 1
+              and s320.graphs[b].launches == 1,
+              f"10b: bucket {b}'s replay counted "
+              f"{nms_cuda.nms_sweep.launches - before} K1 launches")
+        with torch.inference_mode():
+            want = s320.module(torch.from_numpy(imgs).to(dev)).cpu().numpy()
+        check(np.array_equal(got, want),
+              f"10b: bucket {b}'s graph replay differs from eager")
+    log("artifact", f"10b: one CUDA graph per bucket {list(engine.buckets)}"
+        f", captured in {out['320_bf16']['capture_s']:.2f} s; each replay "
+        "equals the eager artifact exactly and counts one K1 launch")
+    server = Server(engine, s320.meta)
+    requests = noise_images(rng, ENGINE_REQUESTS + HTTP_REQUESTS)
+    results, stats, launches = serve_requests(engine, server, requests,
+                                              "artifact")
+    check(launches == stats["batches"] > 0,
+          f"10b: K1 launched {launches} times for {stats['batches']} "
+          "device batches through the graphs")
+    kept = int(sum((d[..., 4] > 0).sum() for d in results.values()))
+    log("artifact", f"10b: {len(requests)} requests ({HTTP_REQUESTS} over "
+        f"HTTP) through the artifact in {stats['batches']} device batches, "
+        f"0 errors, {kept} detections; K1 launches {launches}")
+    out["served"] = {"requests": len(requests),
+                     "batches": stats["batches"], "launches": launches}
+
+    # -- 10c. RefineDet896-BN, uint8 wire, the SSDD mean ---------------------
+    mbn = build_refinedet_bn("test", BN_SIZE, 2, dtype=bf16, device=dev,
+                             seed=0)
+    wire = {"uint8_input": True, "input_mean": MEANS}
+    sbn, out["896_bn_uint8"] = artifact(mbn, "refinedet896_bn_uint8",
+                                        **wire)
+    check(sbn.meta["input_mean_bgr"] == list(MEANS)
+          and sbn.meta["use_bn"], f"10c: meta {sbn.meta}")
+    livebn = make_serving_fn(mbn, None, fused_nms={}, **wire)
+    raw = rng.randint(0, 256, (BN_BATCH, BN_SIZE, BN_SIZE, 3)).astype(
+        np.uint8)
+    got, want = sbn(raw), livebn(raw)
+    check(np.array_equal(got, want), "10c: the 896-BN uint8 artifact "
+          f"differs from the live function (max abs err "
+          f"{np.abs(got - want).max()})")
+    log("artifact", f"10c: RefineDet896-BN bf16 uint8-wire artifact (mean "
+        f"{MEANS[0]}) equals make_serving_fn exactly at batch {BN_BATCH} "
+        f"({int((got[..., 4] > 0).sum())} detections)")
+
+    # -- 10d. timings: live function, eager artifact, graph replay ----------
+    cycles = spin_cycles(ARTIFACT_SPIN_MS)
+    log("artifact", smi)
+    for key, model, serving, live, imgs, w in (
+            ("320_bf16", m320, s320, live320, noise_images(rng, SERVE_BATCH),
+             {}),
+            ("896_bn_uint8", mbn, sbn, livebn, raw, wire)):
+        b = imgs.shape[0]
+        module = inference_module(model, None, {}, **w)
+        x = torch.from_numpy(imgs).to(dev)
+        with torch.inference_mode():
+            t = {"live": (host_ms(lambda: live(imgs), ARTIFACT_REPS),
+                          device_ms(lambda: module(x), ARTIFACT_REPS,
+                                    cycles)),
+                 "eager": (host_ms(lambda: serving(imgs), ARTIFACT_REPS),
+                           device_ms(lambda: serving.module(x),
+                                     ARTIFACT_REPS, cycles))}
+            check(b not in serving.graphs, f"10d: batch {b} captured early")
+            t0 = time.perf_counter()
+            serving.warm_up((b,))
+            out[key]["capture_s"] = out[key].get("capture_s", 0.0) + \
+                time.perf_counter() - t0
+            graph = serving.graphs[b]
+            check(np.array_equal(serving(imgs), live(imgs)),
+                  f"10d: {key}'s batch-{b} graph replay differs from live")
+            before = nms_cuda.nms_sweep.launches
+            e2e = host_ms(lambda: serving(imgs), ARTIFACT_REPS)
+            check(nms_cuda.nms_sweep.launches - before
+                  == ARTIFACT_REPS + 2, f"10d: {key}: replays counted "
+                  f"{nms_cuda.nms_sweep.launches - before} K1 launches")
+            graph.static_in.copy_(x)
+            t["graph"] = (e2e, device_ms(graph.graph.replay, ARTIFACT_REPS,
+                                         cycles))
+        for path, (e2e, dev_t) in t.items():
+            share = 1.0 - dev_t / e2e
+            out[key][f"{path}_e2e_ms"] = e2e
+            out[key][f"{path}_device_ms"] = dev_t
+            out[key][f"{path}_outside_share"] = share
+            log("time", f"10d {key} batch {b}, {path}: end to end "
+                f"{e2e:.2f} ms (host clock), device {dev_t:.2f} ms (CUDA "
+                f"events, card preloaded), {100 * share:.1f}% outside the "
+                "device")
+        log("time", f"10d {key}: export {out[key]['export_s']:.2f} s, save "
+            f"{out[key]['save_s']:.2f} s, load {out[key]['load_s']:.2f} s, "
+            f"capture {out[key]['capture_s']:.2f} s, file "
+            f"{out[key]['file_mb']:.1f} MB")
+    del m320, s320, live320, mbn, sbn, livebn, engine, server
+    shutil.rmtree(folder)
+    torch.cuda.empty_cache()
+    return out, launches
+
+
 def time_sweep(cand, valid, label, thresh, plus_one=False):
     """K1's device ms per launch and the plain version's ms on these
     candidates at IoU ``thresh``, and K1's bound."""
@@ -1072,7 +1357,7 @@ def main() -> int:
     from refinedet_tpu_torch.ops import nms_cuda
     from refinedet_tpu_torch.ops.nms import nms_sweep_reference
     from refinedet_tpu_torch.serve import (BatchingEngine, Server,
-                                           client_detect, make_serving_fn)
+                                           make_serving_fn)
     from refinedet_tpu_torch.serve.export import (fused_nms_settings,
                                                   fused_postprocess)
     from refinedet_tpu_torch.tools.k1_bench import (graph_ms, noise_images,
@@ -1180,44 +1465,9 @@ def main() -> int:
                              "input_size": SIZE,
                              "num_classes": NUM_CLASSES})
     requests = noise_images(rng, ENGINE_REQUESTS + HTTP_REQUESTS)
-    results, errors = {}, []
-
-    def client(tid):
-        try:
-            futs = [(i, engine.submit(requests[i]))
-                    for i in range(tid, ENGINE_REQUESTS, 4)]
-            for i, f in futs:
-                results[i] = f.result(timeout=300)[0]
-        except Exception as e:  # noqa: BLE001 - reported and checked below
-            errors.append(repr(e))
-
-    nms_cuda.nms_sweep.launches = 0
-    server.start()
-    try:
-        threads = [threading.Thread(target=client, args=(t,))
-                   for t in range(4)]
-        for t in threads:
-            t.start()
-        for i in range(ENGINE_REQUESTS, ENGINE_REQUESTS + HTTP_REQUESTS):
-            (results[i],) = client_detect("127.0.0.1", server.port,
-                                          requests[i], timeout=300)
-        for t in threads:
-            t.join(timeout=600)
-            check(not t.is_alive(), "a client thread did not finish")
-        stats = engine.stats()
-    finally:
-        server.stop()
-    launches = nms_cuda.nms_sweep.launches
-    log("serve", f"stats {json.dumps(stats)}")
-    check(not errors, f"client errors: {errors}")
-    check(stats["errors"] == 0, f"engine errors: {stats['errors']}")
+    results, stats, launches = serve_requests(engine, server, requests,
+                                              "serve")
     n_req = ENGINE_REQUESTS + HTTP_REQUESTS
-    check(len(results) == n_req and stats["requests"] == n_req,
-          f"{len(results)} results, {stats['requests']} served of {n_req}")
-    for i, dets in results.items():
-        check(dets.shape == (NUM_CLASSES - 1, NMS_TOP_K, 5),
-              f"request {i}: dets shape {dets.shape}")
-        check(bool(np.isfinite(dets).all()), f"request {i}: non-finite")
     kept = int(sum((d[..., 4] > 0).sum() for d in results.values()))
     check(launches >= stats["batches"] > 0,
           f"K1 launched {launches} times for {stats['batches']} batches")
@@ -1326,8 +1576,15 @@ def main() -> int:
           "the augmented training path launched K1")
     log("aug", "K1 launches on the augmented training path: 0")
     log("time", f"phase 9 took {time.perf_counter() - t9:.1f} s")
-    log("time", f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"augment": augmented}), flush=True)
+
+    # -- 10. the serving artifact ---------------------------------------------
+    t10 = time.perf_counter()
+    artifact, artifact_launches = artifact_phase(dev, smi, rng)
+    launches += artifact_launches
+    log("time", f"phase 10 took {time.perf_counter() - t10:.1f} s")
+    log("time", f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"artifact": artifact}), flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "nms_sweep",

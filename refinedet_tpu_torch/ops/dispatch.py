@@ -1,8 +1,9 @@
 """Batched NMS and compaction for the detection post-processors.
 
-Port of ``refinedet_tpu/ops/dispatch.py``. The sweep goes where the
-tensors are: on a CUDA tensor to kernel K1 (``ops/nms_cuda.py``), on a CPU
-tensor to its plain version. ``plain=True`` takes the plain version on any
+Port of ``refinedet_tpu/ops/dispatch.py``. The sweep is the op
+``refinedet_tpu_torch::nms_sweep`` (``ops/nms_cuda.py``), which goes where
+the tensors are: on a CUDA tensor to kernel K1, on a CPU tensor to its
+plain version; ``torch.export`` keeps it as one node. ``plain=True`` takes the plain version on any
 device; it exists so the kernel path can be held against the plain path on
 the card.
 """

@@ -21,6 +21,16 @@ The library is compiled by ``nvcc`` for ``sm_90a`` at first use, from the
 source in this package only, into ``_build/`` beside it, and loaded with
 ``ctypes``. For a CPU tensor the wrapper computes the plain version; for a
 CUDA tensor it launches the kernel or raises, and never falls back.
+
+The sweep is the PyTorch op ``refinedet_tpu_torch::nms_sweep``
+(``torch.library.custom_op``), registered when this module is imported:
+its CPU implementation is the plain version, its CUDA one the launch,
+and a fake one gives ``torch.export`` the ``[G, K]`` bool result, so an
+exported program keeps the sweep as one node. A loader of such a program
+imports ``refinedet_tpu_torch.ops`` first. ``nms_sweep.launches`` counts
+launches; a launch recorded into a CUDA graph is counted in
+``nms_sweep.captured`` instead, and whoever replays the graph adds the
+launches it holds (``serve/export.py:ServingModel``).
 """
 
 from __future__ import annotations
@@ -117,14 +127,7 @@ def load_kernel() -> KernelLibrary:
         return _library
 
 
-def nms_sweep(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
-              plus_one: bool = False) -> torch.Tensor:
-    """Keep mask ``[G, K]`` bool of the greedy sweep over score-descending
-    candidates ``boxes [G, K, 4]`` float32 and ``valid [G, K]`` bool.
-
-    CPU tensors take the plain version; CUDA tensors launch K1, which
-    adds one to ``nms_sweep.launches``.
-    """
+def _check(boxes: torch.Tensor, valid: torch.Tensor) -> None:
     if boxes.dim() != 3 or boxes.shape[-1] != 4:
         raise ValueError(f"boxes must be [G, K, 4], got {tuple(boxes.shape)}")
     if valid.shape != boxes.shape[:2]:
@@ -135,12 +138,30 @@ def nms_sweep(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
                          f"{boxes.dtype} and {valid.dtype}")
     if boxes.device != valid.device:
         raise ValueError(f"boxes on {boxes.device}, valid on {valid.device}")
-    if boxes.device.type == "cpu":
-        return nms_sweep_reference(boxes, valid, iou_thresh, plus_one)
-    if boxes.device.type != "cuda":
+    if boxes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no NMS sweep for device {boxes.device}")
-    if not (boxes.is_contiguous() and valid.is_contiguous()):
+    if boxes.device.type == "cuda" and not (boxes.is_contiguous()
+                                            and valid.is_contiguous()):
         raise ValueError("boxes and valid must be contiguous")
+
+
+@torch.library.custom_op("refinedet_tpu_torch::nms_sweep", mutates_args=(),
+                         device_types="cpu")
+def nms_sweep_op(boxes: torch.Tensor, valid: torch.Tensor,
+                 iou_thresh: float, plus_one: bool) -> torch.Tensor:
+    """The op; on the CPU, the plain version."""
+    return nms_sweep_reference(boxes, valid, iou_thresh, plus_one)
+
+
+@nms_sweep_op.register_kernel("cuda")
+def _launch(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
+            plus_one: bool) -> torch.Tensor:
+    """K1 on the tensors' card; raises on anything it cannot take."""
+    # ``nms_sweep`` refuses strided inputs, but an exported program calls
+    # the op directly, with the strides the card's kernels produce; its
+    # trace saw other (fake) strides and dropped ``.contiguous()`` as a
+    # no-op. A copy here costs 17 bytes a candidate.
+    boxes, valid = boxes.contiguous(), valid.contiguous()
     if boxes.data_ptr() % 16:
         raise ValueError("boxes must be 16-byte aligned (float4 loads)")
     g, k = valid.shape
@@ -155,10 +176,34 @@ def nms_sweep(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
         err = kernel.lib.nms_sweep_launch(
             boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), g, k,
             as_f32(iou_thresh), int(bool(plus_one)), stream)
+        capturing = torch.cuda.is_current_stream_capturing()
     if err:
         raise RuntimeError(f"nms_sweep launch failed: CUDA error {err}")
-    nms_sweep.launches += 1
+    if capturing:
+        nms_sweep.captured += 1
+    else:
+        nms_sweep.launches += 1
     return keep
 
 
+@nms_sweep_op.register_fake
+def _(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
+      plus_one: bool) -> torch.Tensor:
+    return torch.empty_like(valid)
+
+
+def nms_sweep(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
+              plus_one: bool = False) -> torch.Tensor:
+    """Keep mask ``[G, K]`` bool of the greedy sweep over score-descending
+    candidates ``boxes [G, K, 4]`` float32 and ``valid [G, K]`` bool,
+    through the op.
+
+    CPU tensors take the plain version; CUDA tensors launch K1, which
+    adds one to ``nms_sweep.launches``.
+    """
+    _check(boxes, valid)
+    return nms_sweep_op(boxes, valid, as_f32(iou_thresh), bool(plus_one))
+
+
 nms_sweep.launches = 0
+nms_sweep.captured = 0

@@ -1,8 +1,12 @@
-from refinedet_tpu_torch.serve.export import (FusedNms, fused_postprocess,
-                                              make_serving_fn)
+from refinedet_tpu_torch.serve.export import (FusedNms, ServingModel,
+                                              export_inference,
+                                              fused_postprocess, load_serving,
+                                              make_serving_fn, save_serving)
 from refinedet_tpu_torch.serve.server import (BatchingEngine,
                                               EngineOverloadedError, Server,
                                               client_detect)
 
 __all__ = ["BatchingEngine", "EngineOverloadedError", "FusedNms", "Server",
-           "client_detect", "fused_postprocess", "make_serving_fn"]
+           "ServingModel", "client_detect", "export_inference",
+           "fused_postprocess", "load_serving", "make_serving_fn",
+           "save_serving"]

@@ -1,29 +1,64 @@
-"""The serving function: numpy images in, numpy detections out.
+"""The serving function and the serving artifact: numpy images in, numpy
+detections out.
 
-Port of the body of ``refinedet_tpu/serve/export.py:export_inference``.
-``make_serving_fn`` wraps a test-phase model (weights resident on its
-device) in one callable. With ``fused_nms`` the whole post-processing runs
-on the device (softmax, objectness filter, cascade decode, per-class NMS
-through kernel K1, compaction), and the host receives ``dets [B, C-1, K,
-5]`` rows (x1, y1, x2, y2, score), normalized 0-1, score-descending,
-zero-padded. Note the column order differs from ``detect_refinedet_nms``'s
-(score first).
+Port of ``refinedet_tpu/serve/export.py``. ``make_serving_fn`` wraps a
+test-phase model (weights resident on its device) in one callable. With
+``fused_nms`` the whole post-processing runs on the device (softmax,
+objectness filter, cascade decode, per-class NMS through kernel K1,
+compaction), and the host receives ``dets [B, C-1, K, 5]`` rows (x1, y1,
+x2, y2, score), normalized 0-1, score-descending, zero-padded. Note the
+column order differs from ``detect_refinedet_nms``'s (score first).
 
-A serialized artifact (``save_serving``/``load_serving``) is not ported
-yet.
+``export_inference`` exports the same device function (``InferenceModule``)
+with ``torch.export``, weights included; ``save_serving`` writes it to one
+file and ``load_serving`` reads it back as a ``ServingModel`` without any
+model class: the serving host needs torch, numpy and
+``refinedet_tpu_torch.ops`` (which registers K1 as the op
+``refinedet_tpu_torch::nms_sweep``, one node of the exported graph). One
+artifact serves any batch size when exported with a symbolic batch.
+
+File format: ``MAGIC | u32 json_len | json metadata | torch.export.save
+bytes``. MAGIC is not the JAX package's, so each loader refuses the other
+package's files with a clear error.
+
+Unlike the JAX artifact, which is cross-platform, this one runs only on
+the device it was exported on, which its metadata records (``device``).
+``torch.export`` records bf16 autocast for one device type: an artifact
+exported on the CPU and moved to the card would run in float32 without a
+word. So ``load_serving`` never moves an artifact, and it raises for a
+CUDA artifact on a host without a card. Export on the card to serve on
+the card.
+
+On the card, ``ServingModel.warm_up(batch_sizes)`` captures one CUDA
+graph per batch size, the counterpart of XLA's one executable per bucket:
+a call at a captured size copies its images into the graph's static input
+buffer and replays the graph (the copies in and out stay outside it).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Mapping, Optional, Tuple
+import io
+import json
+import struct
+import threading
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from refinedet_tpu_torch.config import VOC_MEANS, DetectConfig
 from refinedet_tpu_torch.detect.detection import detect_refinedet
+from refinedet_tpu_torch.ops import nms_cuda
 from refinedet_tpu_torch.ops.dispatch import class_parallel_nms
+
+MAGIC = b"RDTPUTORCH1\n"
+JAX_MAGIC = b"RDTPUSRV1\n"  # refinedet_tpu/serve/export.py's artifacts
+FORMAT = "refinedet-tpu-torch-serving"
+FUSED_OUTPUT = ("dets[b, C-1, K, 5] (x1, y1, x2, y2, score), normalized "
+                "0-1 coords, per-class NMS'd, score-descending, "
+                "zero-padded")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,9 +115,97 @@ def fused_postprocess(heads, priors: torch.Tensor, opts: FusedNms,
     return torch.cat([bx, sc[..., None]], dim=-1)
 
 
+def _mean_bgr(uint8_input: bool,
+              input_mean: Optional[Sequence[float]]
+              ) -> Optional[Tuple[float, float, float]]:
+    """The per-channel mean (BGR) the uint8 wire subtracts, or None."""
+    if input_mean is not None and not uint8_input:
+        raise ValueError("input_mean only applies with uint8_input=True "
+                         "(the f32 wire is already mean-subtracted)")
+    if not uint8_input:
+        return None
+    mean = tuple(float(m) for m in (input_mean if input_mean is not None
+                                    else VOC_MEANS))
+    if len(mean) != 3:
+        raise ValueError(f"input_mean needs 3 channels, got {mean}")
+    return mean
+
+
+class InferenceModule(nn.Module):
+    """The device half of serving, images ``[B, S, S, 3]`` to outputs: the
+    one function both ``make_serving_fn`` and the artifact run.
+
+    With a mean, the input is raw uint8 RGB and ``x.float() - mean_rgb``
+    is its first op (exact for integer pixels); the mean is given in BGR,
+    the reference's config convention, and reversed, as BaseTransform
+    subtracts in BGR and then flips. In bf16 the network runs under
+    autocast, as ``RefineDetModel.raw_forward`` does. Without ``opts`` the
+    output is ``RefineDetModel.apply``'s (boxes, scores); with it,
+    ``fused_postprocess``'s dets.
+    """
+
+    def __init__(self, model, opts: Optional[FusedNms] = None,
+                 mean_bgr: Optional[Sequence[float]] = None):
+        super().__init__()
+        self.net = model.net
+        self.register_buffer("priors", model.priors)
+        self.register_buffer(
+            "mean_rgb", None if mean_bgr is None else torch.tensor(
+                mean_bgr[::-1], dtype=torch.float32,
+                device=model.priors.device))
+        self.device_type = model.priors.device.type
+        self.bf16 = model.dtype == torch.bfloat16
+        self.opts = opts
+        self.detect = model.detect
+
+    def forward(self, images: torch.Tensor):
+        x = images if self.mean_rgb is None else \
+            images.float() - self.mean_rgb
+        with torch.autocast(device_type=self.device_type,
+                            dtype=torch.bfloat16, enabled=self.bf16):
+            heads = self.net(x)
+        if self.opts is not None:
+            return fused_postprocess(heads, self.priors, self.opts)
+        arm_loc, arm_conf, odm_loc, odm_conf = heads
+        arm_probs = torch.softmax(arm_conf, dim=-1)
+        odm_probs = torch.softmax(odm_conf, dim=-1)
+        if self.detect is not None:
+            return self.detect.forward(arm_loc, arm_probs, odm_loc,
+                                       odm_probs, self.priors)
+        return detect_refinedet(arm_loc, arm_probs, odm_loc, odm_probs,
+                                self.priors)
+
+
+def inference_module(model, state: Optional[Mapping] = None,
+                     fused_nms: Optional[Mapping] = None,
+                     uint8_input: bool = False,
+                     input_mean: Optional[Sequence[float]] = None
+                     ) -> InferenceModule:
+    """``InferenceModule`` over a test-phase ``model``, checked: ``state``,
+    if given, is strict-loaded into ``model.net`` first, and the net is
+    put in eval mode."""
+    if model.phase != "test":
+        raise ValueError("serving requires a 'test'-phase model")
+    mean_bgr = _mean_bgr(uint8_input, input_mean)
+    opts = (fused_nms_settings(model.num_classes, fused_nms)
+            if fused_nms is not None else None)
+    if state is not None:
+        model.net.load_state_dict(state, strict=True)
+    model.net.eval()
+    return InferenceModule(model, opts, mean_bgr)
+
+
+def _numpy(out):
+    if isinstance(out, torch.Tensor):
+        return out.cpu().numpy()
+    return tuple(o.cpu().numpy() for o in out)
+
+
 def make_serving_fn(model, state: Optional[Mapping] = None,
                     fused_nms: Optional[Mapping] = None,
-                    uint8_input: bool = False) -> Callable:
+                    uint8_input: bool = False,
+                    input_mean: Optional[Sequence[float]] = None
+                    ) -> Callable:
     """A numpy -> numpy inference function over ``model`` (test phase).
 
     ``state``, if given, is strict-loaded into ``model.net`` first.
@@ -90,19 +213,13 @@ def make_serving_fn(model, state: Optional[Mapping] = None,
     scores); with it, ``dets [B, C-1, K, 5]`` (see ``fused_nms_settings``
     for the keys). The input is NHWC float32 mean-subtracted RGB, or with
     ``uint8_input`` raw uint8 RGB pixels that are mean-subtracted on the
-    device (exact for integer pixels).
+    device (exact for integer pixels), by ``input_mean`` (BGR, default
+    ``VOC_MEANS``).
     """
-    if model.phase != "test":
-        raise ValueError("serving requires a 'test'-phase model")
-    if state is not None:
-        model.net.load_state_dict(state, strict=True)
-    model.net.eval()
+    module = inference_module(model, state, fused_nms, uint8_input,
+                              input_mean)
     device = model.device
-    opts = (fused_nms_settings(model.num_classes, fused_nms)
-            if fused_nms is not None else None)
     in_dtype = np.uint8 if uint8_input else np.float32
-    mean_rgb = torch.tensor(VOC_MEANS[::-1], dtype=torch.float32,
-                            device=device)
 
     def serve(images: np.ndarray):
         images = np.asarray(images, in_dtype)
@@ -112,13 +229,223 @@ def make_serving_fn(model, state: Optional[Mapping] = None,
                              f"{model.size}, 3], got {images.shape}")
         with torch.inference_mode():
             x = torch.from_numpy(np.ascontiguousarray(images)).to(device)
-            if uint8_input:
-                x = x.float() - mean_rgb
-            if opts is None:
-                out = model.apply(x)
-                return tuple(o.cpu().numpy() for o in out)
-            dets = fused_postprocess(model.raw_forward(x), model.priors,
-                                     opts)
-            return dets.cpu().numpy()
+            return _numpy(module(x))
 
     return serve
+
+
+def export_inference(model, state: Optional[Mapping] = None,
+                     batch_size: Optional[int] = None,
+                     fused_nms: Optional[Mapping] = None,
+                     uint8_input: bool = False,
+                     input_mean: Optional[Sequence[float]] = None
+                     ) -> torch.export.ExportedProgram:
+    """``torch.export`` of ``make_serving_fn``'s device function over
+    ``model`` (test phase), weights and priors included, on the model's
+    device.
+
+    ``batch_size=None`` exports a symbolic batch dimension (traced at a
+    batch of 2, valid from 1 up): one artifact serves any batch. An integer
+    fixes the batch. ``fused_nms``, ``uint8_input`` and ``input_mean``
+    (BGR, default ``VOC_MEANS``) are ``make_serving_fn``'s.
+    """
+    module = inference_module(model, state, fused_nms, uint8_input,
+                              input_mean)
+    b = 2 if batch_size is None else int(batch_size)
+    example = torch.zeros((b, model.size, model.size, 3),
+                          dtype=torch.uint8 if uint8_input else torch.float32,
+                          device=model.priors.device)
+    dynamic = None if batch_size is not None else \
+        ({0: torch.export.Dim("batch", min=1)},)
+    program = torch.export.export(module, (example,),
+                                  dynamic_shapes=dynamic)
+    # The zeros it was traced at would be saved with it (4.8 MB at 896).
+    program.example_inputs = None
+    return program
+
+
+def serving_metadata(model, batch_size: Optional[int] = None,
+                     fused_nms: Optional[Mapping] = None,
+                     uint8_input: bool = False,
+                     input_mean: Optional[Sequence[float]] = None) -> Dict:
+    """The artifact's metadata: the JAX package's keys, with ``device``
+    and ``dtype`` for its ``platforms`` and ``torch_version`` for its
+    ``jax_version``."""
+    mean_bgr = _mean_bgr(uint8_input, input_mean)
+    if uint8_input:
+        inp = ("NHWC uint8, raw RGB pixels; the artifact subtracts "
+               "input_mean_bgr (reversed to RGB) on device")
+    else:
+        inp = "NHWC float32, mean-subtracted RGB (BaseTransform)"
+    output = FUSED_OUTPUT if fused_nms is not None else \
+        "(boxes[b,N,4], scores[b,N,C]) raw Detect_RefineDet path"
+    return {
+        "format": FORMAT,
+        "input_size": model.size,
+        "num_classes": model.num_classes,
+        "batch_size": batch_size,  # None = symbolic (any batch)
+        "use_bn": model.use_bn,
+        "int8": False,
+        "device": str(model.priors.device),
+        "dtype": str(model.dtype).replace("torch.", ""),
+        "fused_nms": dict(fused_nms) if fused_nms is not None else None,
+        "input_dtype": "uint8" if uint8_input else "float32",
+        "input_mean_bgr": list(mean_bgr) if mean_bgr else None,
+        "input": inp,
+        "output": output,
+        "torch_version": torch.__version__,
+    }
+
+
+def write_serving(path: str, program: torch.export.ExportedProgram,
+                  meta: Mapping) -> None:
+    """Write ``program`` and ``meta`` as one artifact file."""
+    blob = io.BytesIO()
+    torch.export.save(program, blob)
+    header = json.dumps(meta, sort_keys=True).encode("utf-8")
+    with open(path, "wb") as f:
+        f.write(MAGIC)
+        f.write(struct.pack("<I", len(header)))
+        f.write(header)
+        f.write(blob.getbuffer())
+
+
+def save_serving(model, state: Optional[Mapping], path: str,
+                 batch_size: Optional[int] = None,
+                 fused_nms: Optional[Mapping] = None,
+                 uint8_input: bool = False,
+                 input_mean: Optional[Sequence[float]] = None) -> dict:
+    """Export and write a serving artifact; returns its metadata."""
+    program = export_inference(model, state, batch_size=batch_size,
+                               fused_nms=fused_nms, uint8_input=uint8_input,
+                               input_mean=input_mean)
+    meta = serving_metadata(model, batch_size, fused_nms, uint8_input,
+                            input_mean)
+    write_serving(path, program, meta)
+    return meta
+
+
+class BucketGraph:
+    """The artifact at one batch size as one CUDA graph: a static input
+    buffer, the graph, its static outputs, and the K1 launches it holds.
+
+    Capture runs the module twice on a side stream first (K1's build,
+    cuDNN's plans, the allocator's warm-up); a capture that fails raises.
+    K1's wrapper counts a launch recorded into the graph in
+    ``nms_sweep.captured``; every replay adds the graph's launches to
+    ``nms_sweep.launches``.
+    """
+
+    def __init__(self, module: nn.Module, static_in: torch.Tensor,
+                 pool=None):
+        self.static_in = static_in
+        side = torch.cuda.Stream(static_in.device)
+        side.wait_stream(torch.cuda.current_stream(static_in.device))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                module(static_in)
+        torch.cuda.current_stream(static_in.device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        before = nms_cuda.nms_sweep.captured
+        with torch.cuda.graph(self.graph, pool=pool):
+            self.out = module(static_in)
+        self.launches = nms_cuda.nms_sweep.captured - before
+
+    def replay(self, images: torch.Tensor):
+        """Copy ``images`` (host) into the static input, replay, and
+        return the static outputs (overwritten by the next replay)."""
+        self.static_in.copy_(images)
+        self.graph.replay()
+        nms_cuda.nms_sweep.launches += self.launches
+        return self.out
+
+
+class ServingModel:
+    """A loaded artifact: ``serving(images) -> outputs`` as numpy, run
+    under ``inference_mode`` on the device the artifact was exported on.
+    A call at a batch size ``warm_up`` captured replays its CUDA graph;
+    any other runs the exported program eagerly. Calls are serialized."""
+
+    def __init__(self, meta: Dict, program: torch.export.ExportedProgram):
+        self.meta = meta
+        self.program = program
+        self.module = program.module()
+        self.device = torch.device(meta["device"])
+        self.input_dtype = np.dtype(meta["input_dtype"])
+        size = meta["input_size"]
+        self.input_shape = (size, size, 3)
+        self.graphs: Dict[int, BucketGraph] = {}
+        self._lock = threading.Lock()
+
+    def _check_batch(self, n: int) -> None:
+        want = self.meta["batch_size"]
+        if want is not None and n != want:
+            raise ValueError(
+                f"artifact was exported for batch {want}, "
+                f"got {n} (re-export with batch_size=None "
+                "for a symbolic batch)")
+
+    def __call__(self, images):
+        images = np.asarray(images, self.input_dtype)
+        if images.ndim != 4 or images.shape[1:] != self.input_shape:
+            raise ValueError(f"expected images [B, {self.input_shape[0]}, "
+                             f"{self.input_shape[1]}, 3], got "
+                             f"{images.shape}")
+        self._check_batch(images.shape[0])
+        x = torch.from_numpy(np.ascontiguousarray(images))
+        with self._lock, torch.inference_mode():
+            graph = self.graphs.get(images.shape[0])
+            if graph is not None:
+                return _numpy(graph.replay(x))
+            return _numpy(self.module(x.to(self.device)))
+
+    def warm_up(self, batch_sizes: Sequence[int]) -> None:
+        """Make each batch size ready before the first request: on the
+        card, capture one CUDA graph each (largest first, into one memory
+        pool); elsewhere, run each once."""
+        for b in batch_sizes:
+            self._check_batch(b)
+        dtype = torch.uint8 if self.input_dtype == np.uint8 else \
+            torch.float32
+        with self._lock, torch.inference_mode():
+            if self.device.type != "cuda":
+                for b in batch_sizes:
+                    self.module(torch.zeros((b, *self.input_shape),
+                                            dtype=dtype))
+                return
+            nms_cuda.load_kernel()
+            pool = torch.cuda.graph_pool_handle()
+            for b in sorted(set(batch_sizes), reverse=True):
+                static_in = torch.zeros((b, *self.input_shape), dtype=dtype,
+                                        device=self.device)
+                self.graphs[b] = BucketGraph(self.module, static_in, pool)
+
+
+def load_serving(path: str) -> ServingModel:
+    """Load an artifact written by ``save_serving``. Needs torch and
+    ``refinedet_tpu_torch.ops`` (imported by this module: it registers
+    the K1 op the program calls), and no model class, checkpoint or
+    config. Raises for a file of the JAX package, and for a CUDA artifact
+    on a host without a card; never moves an artifact to another
+    device."""
+    with open(path, "rb") as f:
+        magic = f.read(len(MAGIC))
+        if magic != MAGIC:
+            if magic.startswith(JAX_MAGIC):
+                raise ValueError(
+                    f"{path}: a serving artifact of the JAX package "
+                    "(refinedet_tpu.serve); this loader reads artifacts "
+                    "written by refinedet_tpu_torch.serve.save_serving")
+            raise ValueError(f"{path}: not a refinedet-tpu-torch serving "
+                             f"artifact (magic {magic!r})")
+        (hlen,) = struct.unpack("<I", f.read(4))
+        meta = json.loads(f.read(hlen).decode("utf-8"))
+        blob = f.read()
+    device = torch.device(meta["device"])
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{path} was exported on {device} and runs only there, but no "
+            "CUDA device is visible. An artifact runs on the device it was "
+            "exported on: export one with --device cpu to serve on the "
+            "CPU.")
+    return ServingModel(meta, torch.export.load(io.BytesIO(blob)))

@@ -20,6 +20,10 @@ turn many concurrent single-image requests into few large device batches:
 The engine is deliberately independent of HTTP — ``submit()`` returns a
 ``concurrent.futures.Future``, so an embedding application (or a future
 gRPC front) reuses the same batching core.
+
+``main`` serves a serving artifact (``--artifact``, as the JAX server
+does; on the card each bucket replays its own CUDA graph, captured at
+startup), or a model built from ``--checkpoint``/``--seed``.
 """
 
 from __future__ import annotations
@@ -393,25 +397,42 @@ def parse_args(argv=None):
 
     p = argparse.ArgumentParser(
         description="micro-batching HTTP serving host")
-    p.add_argument("--size", type=int, default=320, choices=(320, 512))
-    p.add_argument("--num_classes", type=int, default=21)
     src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--artifact",
+                     help="a serving artifact from python -m "
+                          "refinedet_tpu_torch.tools.export_serving; its "
+                          "metadata gives the input size, dtype, wire and "
+                          "device")
     src.add_argument("--checkpoint",
                      help="a training checkpoint of the port, or a "
                           "reference-named .pth state_dict ('module.' "
                           "prefixes stripped); strict load")
     src.add_argument("--seed", type=int,
                      help="serve random weights drawn from this seed")
-    p.add_argument("--device", default="cuda")
-    p.add_argument("--dtype", default="float32",
-                   choices=("float32", "bfloat16"))
+    # Model flags of --checkpoint/--seed; an artifact carries its own.
+    model_flags = {"size": 320, "num_classes": 21, "device": "cuda",
+                   "dtype": "float32"}
+    p.add_argument("--size", type=int, choices=(320, 512),
+                   help="default 320")
+    p.add_argument("--num_classes", type=int, help="default 21")
+    p.add_argument("--device", help="default cuda")
+    p.add_argument("--dtype", choices=("float32", "bfloat16"),
+                   help="default float32")
     p.add_argument("--port", type=int, default=8700)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--max_batch", type=int, default=32)
     p.add_argument("--max_delay_ms", type=float, default=5.0)
     p.add_argument("--max_queue", type=int, default=256,
                    help="pending-request bound; overload returns 503")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    for name, default in model_flags.items():
+        if args.artifact is None:
+            if getattr(args, name) is None:
+                setattr(args, name, default)
+        elif getattr(args, name) is not None:
+            p.error(f"--{name} comes from the artifact's metadata; it "
+                    "does not go with --artifact")
+    return args
 
 
 def load_model(args):
@@ -432,38 +453,60 @@ def load_model(args):
     return model
 
 
-def main(argv=None):
-    """``python -m refinedet_tpu_torch.serve.server --checkpoint m.pth``
+def make_server(args) -> Server:
+    """The server ``args`` ask for, its engine warm and not yet started.
 
-    Serves fused-NMS detections (``dets [C-1, 200, 5]`` per image) of a
-    test-phase RefineDet built on ``--device`` (the card by default), with
-    the weights of ``--checkpoint`` (a port training checkpoint or a
-    reference-named ``.pth``) or drawn from ``--seed``.
+    With ``--artifact``, the loaded ``ServingModel`` answers, and on the
+    card each of the engine's buckets replays its own CUDA graph, captured
+    here; the artifact's metadata is the server's ``/meta``. Otherwise a
+    fused-NMS serving function over the model of ``load_model``, each
+    bucket run once here (the kernel build and cuDNN's plans belong at
+    startup, not on the first unlucky requests).
     """
-    from refinedet_tpu_torch.serve.export import make_serving_fn
+    from refinedet_tpu_torch.serve.export import (FUSED_OUTPUT, FORMAT,
+                                                  load_serving,
+                                                  make_serving_fn)
 
-    args = parse_args(argv)
-    model = load_model(args)
-    serving = make_serving_fn(model, None, fused_nms={})
-    size = args.size
-    meta = {"format": "refinedet-tpu-torch-serving", "input_size": size,
-            "num_classes": args.num_classes, "dtype": args.dtype,
-            "device": str(model.device), "fused_nms": {},
-            "input": "NHWC float32, mean-subtracted RGB",
-            "output": "dets[b, C-1, K, 5] (x1, y1, x2, y2, score), "
-                      "normalized 0-1 coords, score-descending, "
-                      "zero-padded"}
+    if args.artifact:
+        serving = load_serving(args.artifact)
+        meta, dtype = serving.meta, serving.input_dtype
+    else:
+        model = load_model(args)
+        serving = make_serving_fn(model, None, fused_nms={})
+        meta = {"format": FORMAT, "input_size": args.size,
+                "num_classes": args.num_classes, "dtype": args.dtype,
+                "device": str(model.device), "fused_nms": {},
+                "input": "NHWC float32, mean-subtracted RGB",
+                "output": FUSED_OUTPUT}
+        dtype = np.dtype(np.float32)
+    size = meta["input_size"]
     engine = BatchingEngine(serving, (size, size, 3),
                             max_batch=args.max_batch,
                             max_delay_ms=args.max_delay_ms,
-                            max_queue=args.max_queue)
-    # Warm every bucket up front: the kernel build and cuDNN's algorithm
-    # choice belong at startup, not on the first unlucky requests.
-    for b in engine.buckets:
-        serving(np.zeros((b, size, size, 3), np.float32))
-    with Server(engine, meta, args.port, args.host) as srv:
-        print(f"serving RefineDet{size} on http://{args.host}:{srv.port} "
-              f"(buckets {list(engine.buckets)}, "
+                            max_queue=args.max_queue, input_dtype=dtype)
+    if args.artifact:
+        serving.warm_up(engine.buckets)
+    else:
+        for b in engine.buckets:
+            serving(np.zeros((b, size, size, 3), dtype))
+    return Server(engine, meta, args.port, args.host)
+
+
+def main(argv=None):
+    """``python -m refinedet_tpu_torch.serve.server --artifact m.rdtpu``
+
+    Serves an artifact of ``tools/export_serving.py`` (on the device it
+    was exported on, one CUDA graph per bucket on the card), or
+    fused-NMS detections (``dets [C-1, 200, 5]`` per image) of a
+    test-phase RefineDet built on ``--device`` (the card by default),
+    with the weights of ``--checkpoint`` (a port training checkpoint or
+    a reference-named ``.pth``) or drawn from ``--seed``.
+    """
+    args = parse_args(argv)
+    with make_server(args) as srv:
+        name = args.artifact or f"RefineDet{srv.engine.input_shape[0]}"
+        print(f"serving {name} on http://{args.host}:{srv.port} "
+              f"(buckets {list(srv.engine.buckets)}, "
               f"max_delay {args.max_delay_ms} ms)", flush=True)
         try:
             threading.Event().wait()

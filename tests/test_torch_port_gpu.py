@@ -3,8 +3,11 @@ CUDA serving path against the CPU one, the training slice (matcher,
 losses, one train step, Trainer resume, the BN variant's train-mode
 forward) on the card against the CPU, on-device augmentation (the card
 against the CPU on the same draws; the augmenting step makes no host
-wait), and the eval slice (the eval post-process and the Evaluator, kernel path
-against plain path; no host sync inside a batch; the host NMS library).
+wait), the eval slice (the eval post-process and the Evaluator, kernel path
+against plain path; no host sync inside a batch; the host NMS library), and
+the serving artifact (exported on the card: the live serving function
+exactly, one CUDA graph per bucket exactly as eager, K1 counted per replay,
+no host sync inside).
 
 They skip without a CUDA card. On the card::
 
@@ -37,9 +40,11 @@ from refinedet_tpu_torch.models import build_refinedet, build_refinedet_bn
 from refinedet_tpu_torch.ops import nms_cuda, nms_native
 from refinedet_tpu_torch.ops.nms import nms_sweep_reference
 from refinedet_tpu_torch.losses import refinedet_multibox_loss
-from refinedet_tpu_torch.serve.export import (fused_nms_settings,
+from refinedet_tpu_torch.serve.export import (ServingModel,
+                                              fused_nms_settings,
                                               fused_postprocess,
-                                              make_serving_fn)
+                                              load_serving, make_serving_fn,
+                                              save_serving)
 from refinedet_tpu_torch.tools.eval_check import (SyntheticSSDD,
                                                   SyntheticVOC)
 from refinedet_tpu_torch.tools.train_check import (SyntheticDetection,
@@ -499,3 +504,75 @@ def test_nms_native_on_the_card_host(cuda):
             nms_native._numpy_nms(dets, 0.45, plus_one)
     keep = nms_native.soft_nms(dets.copy(), method="gaussian")
     assert 0 < len(keep) <= 300
+
+
+@pytest.fixture(scope="module")
+def card_artifact(tmp_path_factory):
+    """RefineDet320 (VOC, 21 classes) in bf16, exported on the card with
+    fused NMS and a symbolic batch, written and loaded back."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    model = build_refinedet("test", 320, 21, dtype=torch.bfloat16,
+                            device="cuda", seed=0)
+    path = tmp_path_factory.mktemp("artifact") / "refinedet320.rdtpu"
+    meta = save_serving(model, None, str(path), fused_nms={})
+    assert meta["device"] == "cuda:0" and meta["dtype"] == "bfloat16"
+    return model, make_serving_fn(model, None, fused_nms={}), \
+        load_serving(str(path))
+
+
+def _noise(seed, b):
+    raw = np.random.RandomState(seed).randint(0, 256, (b, 320, 320, 3))
+    return (raw - np.asarray(VOC_MEANS[::-1])).astype(np.float32)
+
+
+@pytest.mark.parametrize("batch", [1, 5])
+def test_cuda_artifact_matches_live(card_artifact, batch):
+    _, live, serving = card_artifact
+    imgs = _noise(batch, batch)
+    before = nms_cuda.nms_sweep.launches
+    got = serving(imgs)
+    assert nms_cuda.nms_sweep.launches == before + 1
+    assert got.shape == (batch, 20, 200, 5)
+    assert int((got[..., 4] > 0).sum()) > 100 * batch
+    np.testing.assert_array_equal(got, live(imgs))
+
+
+def test_bucket_graphs_replay_eager_and_count_k1(card_artifact):
+    """Each bucket's graph replay equals the eager program exactly, and
+    adds one K1 launch, which the capture itself did not count."""
+    _, _, loaded = card_artifact
+    serving = ServingModel(loaded.meta, loaded.program)
+    buckets = (1, 2, 4, 8)
+    captured = nms_cuda.nms_sweep.captured
+    serving.warm_up(buckets)
+    assert sorted(serving.graphs) == list(buckets)
+    assert nms_cuda.nms_sweep.captured == captured + len(buckets)
+    for b in buckets:
+        assert serving.graphs[b].launches == 1
+        imgs = _noise(10 + b, b)
+        before = nms_cuda.nms_sweep.launches
+        got = serving(imgs)
+        got_again = serving(imgs)
+        assert nms_cuda.nms_sweep.launches == before + 2
+        with torch.inference_mode():
+            want = serving.module(torch.from_numpy(imgs).cuda()).cpu()
+        np.testing.assert_array_equal(got, want.numpy())
+        np.testing.assert_array_equal(got_again, got)
+
+
+def test_fused_artifact_never_syncs(card_artifact):
+    """The exported program (forward, post-process, K1) makes no blocking
+    copy and no synchronization, so it can be captured in a graph."""
+    _, _, serving = card_artifact
+    x = torch.from_numpy(_noise(3, 4)).cuda()
+    with torch.inference_mode():
+        serving.module(x)  # warm-up: cuDNN plans of this shape
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            dets = serving.module(x)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert dets.shape == (4, 20, 200, 5)
