@@ -110,7 +110,29 @@ non-zero exit and no result line:
      live function, the artifact eager and the graph replay, each end to
      end (host clock), on the device (CUDA events, card preloaded) and the
      share outside the device; export, save, load and capture seconds and
-     the file's MB.
+     the file's MB;
+ 11. int8 PTQ (``quant/``, the int8 convolution kernel
+     ``csrc/int8_conv.cu``), RefineDet320 (VOC, 21 classes), bf16, the
+     default ``quant_skip``: (a) the kernel against its plain version at
+     every distinct conv of the 320 set (``quant_skip=()``) at batches 1
+     and 8, the int32 sums and the bf16 outputs bitwise equal; (b) PTQ on
+     the card: seeded weights calibrated on in-memory images
+     (``tools/eval_check.py``), the card's f32 statistics against the
+     CPU's (1e-4 of each conv's largest; ``kernel_q`` exact for every conv whose statistics
+     are equal), bias correction and GPTQ on two named convs, the card's
+     GPTQ rounding against the CPU's on the same Hessian; (c) the int8
+     artifact with fused NMS, exported on the card, equal to the live int8
+     function exactly at batches 1, 8 and 32, then served through
+     ``BatchingEngine`` and HTTP with one CUDA graph per bucket: 26 int8
+     launches and one K1 launch per device batch; (d) beside the card's
+     name and power limit: per distinct conv at batch 32 the kernel (graph
+     replay), its plain version, its bound, the ``torch._int_mm`` library
+     call and cuDNN's bf16 conv, summed per forward; the int8 forward and
+     end to end at batch 32 against the bf16 network's in the same call;
+     calibration and GPTQ seconds; (e) int8 eval on the in-memory SSDD set
+     (RefineDet512, 2 classes, +1 areas): K1 once per batch, 26 int8
+     launches per batch, the kernel post-process equal to the plain one on
+     every batch.
 
 The line before the last is the card's name and power limit from
 nvidia-smi; the last is {"ok": true, "device": {...}}. TF32 is off for
@@ -129,6 +151,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -170,6 +193,12 @@ BN_STAGING = 1792         # 9c: 2 x 896
 ARTIFACT_BATCHES = (1, 8, 32)  # 10a: artifact against the live function
 ARTIFACT_REPS = 10        # 10d: timed calls of each path
 ARTIFACT_SPIN_MS = 50     # 10d: card spin before each device-timed call
+INT8_CHECK_BATCHES = (1, 8)   # 11a: kernel against plain
+INT8_CALIB_IMAGES = 8         # 11b: calibration images (batches of 4)
+INT8_GPTQ_NAMES = ("extra_conv1", "tcb2_0_conv")  # 11b
+INT8_TIME_BATCH = 32          # 11d
+INT8_SSDD_IMAGES = 16         # 11e: 2 eval batches of 8
+INT8_CONVS = 26               # quantized convs at the default quant_skip
 LOSS_KEYS = ("arm_loss_l", "arm_loss_c", "odm_loss_l", "odm_loss_c")
 LOG_LOSSES = re.compile(r"ARM_L Loss: (\S+) ARM_C Loss: (\S+) ODM_L Loss: "
                         r"(\S+) ODM_C Loss: (\S+) loss: (\S+) \|\|")
@@ -1064,11 +1093,12 @@ def augment_phase(dev: torch.device, smi: str, plain: dict) -> dict:
 
 def serve_requests(engine, server, requests, label: str) -> tuple:
     """Drive ``server``: the last HTTP_REQUESTS of ``requests`` over HTTP,
-    the others from 4 client threads through ``engine``, K1's count set
-    to 0 just before and read just after. Checks every answer (no error,
-    fused dets of the expected shape, finite) and returns (answers by
-    request, the engine's stats, K1's launches)."""
-    from refinedet_tpu_torch.ops import nms_cuda
+    the others from 4 client threads through ``engine``, the kernels'
+    counts set to 0 just before and K1's read just after (the int8
+    kernel's stays in ``int8_conv.launches``). Checks every answer (no
+    error, fused dets of the expected shape, finite) and returns (answers
+    by request, the engine's stats, K1's launches)."""
+    from refinedet_tpu_torch.ops import int8_conv, nms_cuda
     from refinedet_tpu_torch.serve import client_detect
 
     n_engine = len(requests) - HTTP_REQUESTS
@@ -1085,6 +1115,7 @@ def serve_requests(engine, server, requests, label: str) -> tuple:
 
     wire = "u1" if requests.dtype == np.uint8 else "<f4"
     nms_cuda.nms_sweep.launches = 0
+    int8_conv.int8_conv.launches = 0
     server.start()
     try:
         threads = [threading.Thread(target=client, args=(t,))
@@ -1304,6 +1335,329 @@ def artifact_phase(dev: torch.device, smi: str, rng) -> tuple:
     return out, launches
 
 
+def int8_phase(dev: torch.device, smi: str, rng) -> tuple:
+    """Phase 11: int8 PTQ on the card; returns its numbers, the int8 and
+    K1 launches of its main paths (11c's serving run; K1 also 11e's eval
+    run), the kernel's worst error against its plain version, and its
+    line of the kernels table."""
+    import torch.nn.functional as F
+
+    from refinedet_tpu_torch.config import MEANS, VOC_MEANS, DetectConfig
+    from refinedet_tpu_torch.data import BaseTransform
+    from refinedet_tpu_torch.eval import Evaluator
+    from refinedet_tpu_torch.eval import evaluator as evaluator_module
+    from refinedet_tpu_torch.eval.evaluator import eval_postprocess
+    from refinedet_tpu_torch.models import build_refinedet
+    from refinedet_tpu_torch.models.layers import QuantConv2d
+    from refinedet_tpu_torch.ops import int8_conv, nms_cuda
+    from refinedet_tpu_torch.quant import (DEFAULT_QUANT_SKIP,
+                                           accumulate_hessians,
+                                           calib_batches_from_dataset,
+                                           calibrate_amax, gptq_round,
+                                           quantize_model,
+                                           quantize_variables)
+    from refinedet_tpu_torch.quant.ptq import _hwio, flax_to_path
+    from refinedet_tpu_torch.serve import (BatchingEngine, Server,
+                                           load_serving, make_serving_fn)
+    from refinedet_tpu_torch.serve.export import (export_inference,
+                                                  serving_metadata,
+                                                  write_serving)
+    from refinedet_tpu_torch.tools import int8_bench
+    from refinedet_tpu_torch.tools.eval_check import (SyntheticSSDD,
+                                                      SyntheticVOC)
+    from refinedet_tpu_torch.tools.k1_bench import graph_ms, noise_images
+
+    out = {"card": smi}
+    bf16 = torch.bfloat16
+    op = int8_conv.int8_conv
+    plain = int8_conv.int8_conv_reference
+    # Random weights leave some channels dead on a few calibration images;
+    # quantize_variables warns for each such conv (JAX's floor applies).
+    warnings.filterwarnings("ignore", "PTQ: .*calibration-dead")
+
+    # -- 11a. the kernel against its plain version ---------------------------
+    t0 = time.perf_counter()
+    every = int8_bench.distinct(int8_bench.conv_shapes(SIZE, NUM_CLASSES))
+    worst, compared = 0.0, 0
+    for b in INT8_CHECK_BATCHES:
+        for i, case in enumerate(every):
+            xq, w, ws, bias = int8_bench.random_case(case, b, dev,
+                                                     100 * b + i)
+            k, s, p, d = case["geom"]
+            for dtype in (torch.int32, bf16):
+                got = op(xq, w, ws, bias, s, p, d, dtype)
+                want = plain(xq, w, ws, bias, s, p, d, dtype)
+                err = float((got.double() - want.double()).abs().max())
+                worst = max(worst, err)
+                compared += 1
+                check(torch.equal(got, want), f"11a: int8 conv "
+                      f"{case['names']} batch {b} {dtype}: max abs err "
+                      f"{err} against the plain version")
+    del xq, w, ws, bias, got, want
+    log("int8", f"11a: {len(every)} distinct convs of the 320 set "
+        f"(quant_skip=()) at batches {list(INT8_CHECK_BATCHES)}: int32 sums "
+        f"and bf16 outputs bitwise equal to the plain version ({compared} "
+        f"comparisons, {time.perf_counter() - t0:.1f} s)")
+
+    # -- 11b. PTQ on the card --------------------------------------------------
+    data = SyntheticVOC(INT8_CALIB_IMAGES, SIZE, seed=500)
+    calib = list(calib_batches_from_dataset(
+        data, BaseTransform(SIZE, VOC_MEANS), INT8_CALIB_IMAGES, 4))
+    f32_card = build_refinedet("test", SIZE, NUM_CLASSES, device=dev, seed=0)
+    f32_cpu = build_refinedet("test", SIZE, NUM_CLASSES, device="cpu",
+                              seed=0)
+    stats_card = calibrate_amax(f32_card, calib[:1])
+    stats_cpu = calibrate_amax(f32_cpu, calib[:1])
+    worst_rel, same = 0.0, []
+    for name, want in stats_cpu.items():
+        got = stats_card[name]
+        # cuDNN and oneDNN sum in different orders (phase 4's limit)
+        rel = float(np.abs(got - want).max() / want.max())
+        worst_rel = max(worst_rel, rel)
+        check(rel <= 1e-4, f"11b: {name}: card stats {rel:.3g} of the "
+              "largest off the CPU's")
+        if np.array_equal(got, want):
+            same.append(name)
+    twin = build_refinedet("test", SIZE, NUM_CLASSES, device="cpu",
+                           quant=True, quant_skip=DEFAULT_QUANT_SKIP)
+    state = f32_cpu.net.state_dict()
+    q_card = quantize_variables(twin, state, stats_card)
+    q_cpu = quantize_variables(twin, state, stats_cpu)
+    paths = flax_to_path(twin.net)
+    equal_q = [n for n in same if n in twin.net.calibrated and torch.equal(
+        q_card[paths[n] + ".kernel_q"], q_cpu[paths[n] + ".kernel_q"])]
+    check(len(equal_q) == len([n for n in same
+                               if n in twin.net.calibrated]),
+          "11b: kernel_q differs where the stats are equal")
+    near = sum(float((q_card[paths[n] + ".kernel_q"].int()
+                      - q_cpu[paths[n] + ".kernel_q"].int()).abs().max()) <= 1
+               for n in twin.net.calibrated)
+    log("int8", f"11b: f32 calibration on the card against the CPU (4 "
+        f"images): stats within {worst_rel:.3g} of each conv's largest "
+        f"(limit 1e-4); "
+        f"{len(same)} of {len(stats_cpu)} convs' stats bitwise equal, "
+        f"their kernel_q equal; {near} of {len(twin.net.calibrated)} "
+        "kernel_q within one step")
+    t0 = time.perf_counter()
+    hessians = accumulate_hessians(f32_card, calib, names=INT8_GPTQ_NAMES)
+    hess_s = time.perf_counter() - t0
+    name = INT8_GPTQ_NAMES[0]
+    w = _hwio(state[paths[name] + ".weight"])
+    in_scale = (q_card[paths[name] + ".in_scale"]).numpy()
+    w_scale = (q_card[paths[name] + ".w_scale"]).numpy()
+    t0 = time.perf_counter()
+    g_card = gptq_round(w, in_scale, w_scale, hessians[name], device=dev)
+    gptq_card_s = time.perf_counter() - t0
+    g_cpu = gptq_round(w, in_scale, w_scale, hessians[name], device="cpu")
+    g_equal = float((g_card == g_cpu).mean())
+    check(g_equal == 1.0, f"11b: GPTQ on the card equals the CPU's on "
+          f"{100 * g_equal:.3f}% of {name}'s weights")
+    del f32_cpu, twin, q_card, q_cpu
+    t0 = time.perf_counter()
+    _, state_gptq = quantize_model(f32_card, calib, dtype=bf16,
+                                   bias_correct=True, weight_opt="gptq",
+                                   weight_opt_names=INT8_GPTQ_NAMES)
+    gptq_model_s = time.perf_counter() - t0
+    check(sum(k.endswith(".kernel_q") for k in state_gptq) == INT8_CONVS,
+          "11b: the GPTQ twin's quantized convs")
+    del f32_card, state_gptq
+    model = build_refinedet("test", SIZE, NUM_CLASSES, dtype=bf16,
+                            device=dev, seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model_q, _ = quantize_model(model, calib, dtype=bf16)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    n_q = sum(isinstance(m, QuantConv2d) for m in model_q.net.modules())
+    check(n_q == INT8_CONVS, f"11b: {n_q} quantized convs")
+    log("int8", f"11b: GPTQ of {name} on the card equals the CPU's on the "
+        f"same Hessian ({gptq_card_s:.2f} s on the card); Hessians of "
+        f"{list(INT8_GPTQ_NAMES)} {hess_s:.2f} s; calibration, bias "
+        f"correction and GPTQ on them {gptq_model_s:.2f} s; the served twin "
+        f"(bf16, round to nearest, {INT8_CALIB_IMAGES} images) quantized in "
+        f"{calib_s:.2f} s")
+    out.update({"stats_worst_rel": worst_rel, "stats_equal": len(same),
+                "gptq_equal": g_equal, "hessians_s": hess_s,
+                "gptq_card_s": gptq_card_s, "gptq_model_s": gptq_model_s,
+                "calibrate_quantize_s": calib_s})
+
+    # -- 11c. the int8 artifact, exact, then served --------------------------
+    folder = tempfile.mkdtemp(prefix="chip_smoke_int8_")
+    path = os.path.join(folder, "refinedet320_int8.rdtpu")
+    t0 = time.perf_counter()
+    program = export_inference(model_q, fused_nms={})
+    write_serving(path, program, serving_metadata(model_q, None, {}))
+    serving = load_serving(path)
+    out["export_save_load_s"] = time.perf_counter() - t0
+    check(serving.meta["int8"] and serving.meta["quant_skip"]
+          == list(DEFAULT_QUANT_SKIP), f"11c: meta {serving.meta}")
+    live = make_serving_fn(model_q, None, fused_nms={})
+    kept = []
+    for b in ARTIFACT_BATCHES:
+        imgs = noise_images(rng, b)
+        got, want = serving(imgs), live(imgs)
+        check(np.array_equal(got, want), f"11c: the int8 artifact differs "
+              f"from the live int8 function at batch {b} (max abs err "
+              f"{np.abs(got - want).max()})")
+        kept.append(int((got[..., 4] > 0).sum()))
+    log("int8", f"11c: int8 artifact ({os.path.getsize(path) / 1e6:.1f} "
+        f"MB) equals the live int8 function exactly at batches "
+        f"{list(ARTIFACT_BATCHES)} ({kept} detections)")
+    engine = BatchingEngine(serving, (SIZE, SIZE, 3), max_batch=MAX_BATCH,
+                            max_delay_ms=20.0,
+                            input_dtype=serving.input_dtype)
+    serving.warm_up(engine.buckets)
+    for b in engine.buckets:
+        g = serving.graphs[b]
+        check((g.int8_launches, g.launches) == (INT8_CONVS, 1),
+              f"11c: bucket {b}'s graph holds {g.int8_launches} int8 and "
+              f"{g.launches} K1 launches")
+    server = Server(engine, serving.meta)
+    requests = noise_images(rng, ENGINE_REQUESTS + HTTP_REQUESTS)
+    _, stats, k1_launches = serve_requests(engine, server, requests, "int8")
+    int8_launches = op.launches
+    check(k1_launches == stats["batches"] > 0
+          and int8_launches == INT8_CONVS * stats["batches"],
+          f"11c: {int8_launches} int8 and {k1_launches} K1 launches for "
+          f"{stats['batches']} device batches")
+    log("int8", f"11c: {len(requests)} requests ({HTTP_REQUESTS} over HTTP) "
+        f"through the int8 artifact's graphs (buckets "
+        f"{list(engine.buckets)}) in {stats['batches']} device batches: "
+        f"int8 launches {int8_launches}, K1 launches {k1_launches}")
+    out["served"] = {"requests": len(requests), "batches": stats["batches"],
+                     "int8_launches": int8_launches,
+                     "k1_launches": k1_launches}
+
+    # -- 11d. timings ------------------------------------------------------------
+    log("int8", smi)
+    b = INT8_TIME_BATCH
+    served = {(c["hwc"], c["o"], c["geom"]): c for c in int8_bench.distinct(
+        int8_bench.conv_shapes(SIZE, NUM_CLASSES, DEFAULT_QUANT_SKIP))}
+    rows, sums = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                      "library_ms": 0.0, "cudnn_bf16_ms": 0.0}
+    with torch.inference_mode():
+        for i, case in enumerate(every):
+            xq, w, ws, bias = int8_bench.random_case(case, b, dev, 7000 + i)
+            k, s, p, d = case["geom"]
+            x16 = xq.to(bf16).permute(0, 3, 1, 2)
+            w16 = w.to(bf16).permute(0, 3, 1, 2)
+            b16 = bias.to(bf16)
+            row = {"names": case["names"], "hwc": case["hwc"],
+                   "o": case["o"], "geom": case["geom"],
+                   "ms": graph_ms(lambda: op(xq, w, ws, bias, s, p, d, bf16),
+                                  n=20),
+                   "plain_ms": cuda_ms(lambda: plain(
+                       xq, w, ws, bias, s, p, d, bf16), 2, warmup=1),
+                   "library_ms": cuda_ms(lambda: int8_bench.int_mm_conv(
+                       xq, w, ws, bias, s, p, d, bf16), 5, warmup=2),
+                   "cudnn_bf16_ms": cuda_ms(lambda: F.conv2d(
+                       x16, w16, b16, s, p, d), 5, warmup=2)}
+            row["bound_ms"], row["bound_by"] = int8_bench.bound_ms(case, b)
+            ops, nbytes = int8_bench.work(case, b)
+            row["tops"] = ops / row["ms"] / 1e9
+            key = (case["hwc"], case["o"], case["geom"])
+            row["per_forward"] = served[key]["count"] if key in served else 0
+            for kk in sums:
+                sums[kk] += row["per_forward"] * row[kk]
+            rows.append(row)
+            log("time", f"11d int8 conv {'/'.join(case['names'])} "
+                f"{case['hwc']}->{case['o']} k{k}s{s}p{p}d{d} batch {b}: "
+                f"kernel {row['ms']:.4f} ms ({row['tops']:.1f} TOPS), "
+                f"plain {row['plain_ms']:.3f}, bound {row['bound_ms']:.4f} "
+                f"({row['bound_by']}), _int_mm {row['library_ms']:.4f}, "
+                f"cuDNN bf16 {row['cudnn_bf16_ms']:.4f} ms; "
+                f"{row['per_forward']} a forward")
+            del xq, w, ws, bias, x16, w16, b16
+        log("time", f"11d int8 convs of one forward at batch {b} "
+            f"({INT8_CONVS} launches): kernel {sums['ms']:.3f} ms, plain "
+            f"{sums['plain_ms']:.3f} ms, bound {sums['bound_ms']:.4f} ms, "
+            f"_int_mm {sums['library_ms']:.3f} ms, cuDNN bf16 "
+            f"{sums['cudnn_bf16_ms']:.3f} ms")
+        imgs = noise_images(rng, b)
+        x = torch.from_numpy(imgs).to(dev)
+        fwd_q = cuda_ms(lambda: model_q.raw_forward(x), 10)
+        fwd_bf16 = cuda_ms(lambda: model.raw_forward(x), 10)
+    live_bf16 = make_serving_fn(model, None, fused_nms={})
+    e2e_q = host_ms(lambda: live(imgs), 10)
+    e2e_bf16 = host_ms(lambda: live_bf16(imgs), 10)
+    serving.warm_up((b,))
+    e2e_graph = host_ms(lambda: serving(imgs), 10)
+    log("time", f"11d batch {b}: int8 forward {fwd_q:.2f} ms against bf16 "
+        f"{fwd_bf16:.2f} ms (CUDA events); end to end int8 {e2e_q:.2f} ms "
+        f"(live), {e2e_graph:.2f} ms (artifact graph) against bf16 "
+        f"{e2e_bf16:.2f} ms (host clock)")
+    out["convs"] = rows
+    out["per_forward"] = sums
+    out.update({"forward_int8_ms": fwd_q, "forward_bf16_ms": fwd_bf16,
+                "serve_int8_ms": e2e_q, "serve_int8_graph_ms": e2e_graph,
+                "serve_bf16_ms": e2e_bf16})
+    del model, model_q, serving, live, live_bf16, engine, server, x
+    shutil.rmtree(folder)
+    torch.cuda.empty_cache()
+
+    # -- 11e. int8 eval on the SSDD set ----------------------------------------
+    data = SyntheticSSDD(INT8_SSDD_IMAGES, SSDD_SIZE, seed=600)
+    transform = BaseTransform(SSDD_SIZE, MEANS)
+    model512 = build_refinedet("test", SSDD_SIZE, 2, dtype=bf16, device=dev,
+                               seed=0)
+    q512, state512 = quantize_model(model512, calib_batches_from_dataset(
+        data, transform, EVAL_BATCH, EVAL_BATCH), dtype=bf16)
+    cfg = DetectConfig(num_classes=2, top_k=1000, keep_top_k=500,
+                       nms_thresh=0.49)
+    evaluator = Evaluator(q512, data, cfg, transform, batch_size=EVAL_BATCH,
+                          nms_top_k=1000, max_per_image=500, plus_one=True,
+                          log=lambda line: log("int8", line.strip()))
+    recorded = []
+
+    def recording(heads, priors, scales, *args):
+        dets = eval_postprocess(heads, priors, scales, *args)
+        recorded.append((heads, scales, dets))
+        return dets
+
+    n_batches = -(-len(data) // EVAL_BATCH)
+    evaluator_module.eval_postprocess = recording
+    nms_cuda.nms_sweep.launches = 0
+    op.launches = 0
+    try:
+        all_boxes = evaluator.run(state512)
+    finally:
+        evaluator_module.eval_postprocess = eval_postprocess
+    eval_k1, eval_int8 = nms_cuda.nms_sweep.launches, op.launches
+    check(eval_k1 == len(recorded) == n_batches
+          and eval_int8 == INT8_CONVS * n_batches,
+          f"11e: {eval_k1} K1 and {eval_int8} int8 launches for "
+          f"{n_batches} batches")
+    mismatched = 0
+    with torch.inference_mode():
+        for heads, scales, dets in recorded:
+            ref = eval_postprocess(heads, q512.priors, scales, cfg, 1000,
+                                   True, plain=True)
+            mismatched += not torch.equal(dets, ref)
+    check(mismatched == 0, f"11e: {mismatched} batches differ from the "
+          "plain post-process")
+    coco = data.evaluate_detections(all_boxes)
+    check(coco.shape == (12,) and np.isfinite(coco).all(),
+          "11e: COCO stats not 12 finite values")
+    log("int8", f"11e: int8 RefineDet512 (2 classes) eval on "
+        f"{len(data)} SSDD images: K1 {eval_k1} and int8 {eval_int8} "
+        f"launches for {n_batches} batches, kernel post-process equal to "
+        f"the plain one on every batch; COCO stats "
+        f"{np.round(coco, 4).tolist()}")
+    out["eval"] = {"batches": n_batches, "k1_launches": eval_k1,
+                   "int8_launches": eval_int8,
+                   "coco_stats": [float(v) for v in coco]}
+    del model512, q512, evaluator, recorded
+    torch.cuda.empty_cache()
+    entry = {"name": "int8_conv", "route": "cuda",
+             "source": "refinedet_tpu_torch/csrc/int8_conv.cu",
+             "replaces": "refinedet_tpu/models/layers.py:83",
+             "launches": int8_launches, "max_abs_err": worst,
+             "ms": sums["ms"], "plain_ms": sums["plain_ms"],
+             "bound_ms": sums["bound_ms"], "bound_by": "operations",
+             "library_ms": sums["library_ms"]}
+    return out, int8_launches, k1_launches + eval_k1, entry
+
+
 def time_sweep(cand, valid, label, thresh, plus_one=False):
     """K1's device ms per launch and the plain version's ms on these
     candidates at IoU ``thresh``, and K1's bound."""
@@ -1354,7 +1708,7 @@ def main() -> int:
         return 1
 
     from refinedet_tpu_torch.models import build_refinedet
-    from refinedet_tpu_torch.ops import nms_cuda
+    from refinedet_tpu_torch.ops import int8_conv, nms_cuda
     from refinedet_tpu_torch.ops.nms import nms_sweep_reference
     from refinedet_tpu_torch.serve import (BatchingEngine, Server,
                                            make_serving_fn)
@@ -1381,10 +1735,27 @@ def main() -> int:
         f"{torch.version.cuda} | {kind} x{count}")
     log("device", f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
         f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
-    kernel = nms_cuda.load_kernel()
+    # the kernels' builds, one nvcc each, started together
+    t0 = time.perf_counter()
+    builds = {}
+    threads = [threading.Thread(target=lambda n=n, f=f: builds.__setitem__(
+        n, f())) for n, f in (("K1", nms_cuda.load_kernel),
+                              ("int8_conv", int8_conv.load_kernel))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    check(set(builds) == {"K1", "int8_conv"}, f"builds: {sorted(builds)}")
+    kernel = builds["K1"]
+    log("device", f"kernels built in {time.perf_counter() - t0:.2f} s")
     log("device", f"K1 built in {kernel.build_seconds:.2f} s -> "
         f"{kernel.path.name} (max K {kernel.max_k})")
     for line in kernel.build_log.splitlines():
+        log("device", f"  {line}")
+    lib8 = builds["int8_conv"]
+    log("device", f"int8_conv built in {lib8.build_seconds:.2f} s -> "
+        f"{lib8.path.name}")
+    for line in lib8.build_log.splitlines():
         log("device", f"  {line}")
 
     # -- 2. K1 against its plain version ------------------------------------
@@ -1583,8 +1954,15 @@ def main() -> int:
     artifact, artifact_launches = artifact_phase(dev, smi, rng)
     launches += artifact_launches
     log("time", f"phase 10 took {time.perf_counter() - t10:.1f} s")
-    log("time", f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"artifact": artifact}), flush=True)
+
+    # -- 11. int8 PTQ ----------------------------------------------------------
+    t11 = time.perf_counter()
+    int8, _, int8_k1, int8_entry = int8_phase(dev, smi, rng)
+    launches += int8_k1
+    log("time", f"phase 11 took {time.perf_counter() - t11:.1f} s")
+    log("time", f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"int8": int8}), flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "nms_sweep",
@@ -1598,7 +1976,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }]}), flush=True)
+    }, int8_entry]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind,

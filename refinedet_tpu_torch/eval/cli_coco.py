@@ -7,10 +7,12 @@ epochs (or one ``--trained_model``) -> batched inference with per-class
 NMS on the device (kernel K1 on the card) -> numpy COCOeval stats ->
 ap_stats.json + best-epoch report + FPS/p50.
 
-Reads the port's checkpoints (``train/checkpoints.py``) and bare
-reference-format ``.pth`` state_dicts. Flags of features the port does not
-have yet (int8) raise an error that names the ROADMAP.md item bringing
-them; none is ignored.
+Reads the port's checkpoints (``train/checkpoints.py``), bare
+reference-format ``.pth`` state_dicts, and the int8 files
+``--save_quantized`` writes. ``--int8`` evaluates the int8 PTQ twin
+(``quant/``): per checkpoint, calibration on ``--calib_images`` eval
+images, then int8 trunk and TCB (the kernel ``csrc/int8_conv.cu`` on the
+card), or a pre-quantized checkpoint as it is.
 """
 
 from __future__ import annotations
@@ -29,6 +31,11 @@ from refinedet_tpu_torch.data import BaseTransform, COCODetection
 from refinedet_tpu_torch.device import resolve_device
 from refinedet_tpu_torch.eval import Evaluator
 from refinedet_tpu_torch.models import build_refinedet
+from refinedet_tpu_torch.quant import (DEFAULT_QUANT_SKIP,
+                                       accumulate_hessians,
+                                       calib_batches_from_dataset,
+                                       calibrate_amax, quantize_variables)
+from refinedet_tpu_torch.quant.ptq import check_quantized_set
 from refinedet_tpu_torch.utils.plot import plot_map
 
 try:
@@ -36,44 +43,37 @@ try:
 except ImportError:  # a host without cv2 can still import the module
     cv2 = None
 
-INT8_ITEM = "item 7 (int8 PTQ)"
-
-
 def add_int8_flags(p: argparse.ArgumentParser) -> None:
-    """The JAX CLIs' int8 flags. Unported: each raises when given (see
-    ``refuse_unported``), so their defaults are None here; the JAX CLIs'
-    defaults are in the help."""
+    """The JAX CLIs' int8 flags, with their defaults."""
     p.add_argument("--int8", action="store_true",
-                   help="int8 PTQ twin (not ported yet)")
-    p.add_argument("--calib_images", default=None, type=int,
-                   help="int8 calibration images (JAX default 16)")
-    p.add_argument("--calib_act_stat", default=None,
+                   help="evaluate the int8 PTQ twin (refinedet_tpu_torch/"
+                        "quant): per-checkpoint calibration on "
+                        "--calib_images eval images, then int8 trunk/TCB "
+                        "inference")
+    p.add_argument("--calib_images", default=16, type=int)
+    p.add_argument("--calib_act_stat", default="p9999",
                    choices=["amax", "p9999", "p999", "p99"],
-                   help="int8 activation clip point (JAX default p9999)")
+                   help="activation clip point for int8 calibration")
     p.add_argument("--quant_skip", default=None,
-                   help="conv names kept bf16 under --int8")
+                   help="comma-separated conv names kept bf16 under --int8 "
+                        "(default: the early-VGG set, quant.DEFAULT_QUANT_"
+                        "SKIP; pass '' to quantize everything)")
     p.add_argument("--bias_correct", action="store_true",
-                   help="with --int8: DFQ-style bias correction")
-    p.add_argument("--weight_opt", default=None, choices=["none", "gptq"],
-                   help="with --int8: weight rounding (JAX default none)")
+                   help="with --int8: fold the expected weight-rounding "
+                        "output error into each quantized conv's bias "
+                        "(DFQ-style, from the calibration input means)")
+    p.add_argument("--weight_opt", default="none", choices=["none", "gptq"],
+                   help="with --int8: weight rounding — round-to-nearest "
+                        "(none) or the second-order GPTQ solver "
+                        "(refinedet_tpu_torch/quant/gptq.py, needs the "
+                        "calibration stream twice)")
 
 
-def refuse_unported(args: argparse.Namespace) -> None:
-    """Raise for a flag whose feature the port does not have yet."""
-    unported = [
-        (args.int8, "--int8"),
-        (args.calib_images is not None, "--calib_images"),
-        (args.calib_act_stat is not None, "--calib_act_stat"),
-        (args.quant_skip is not None, "--quant_skip"),
-        (getattr(args, "save_quantized", None) is not None,
-         "--save_quantized"),
-        (args.bias_correct, "--bias_correct"),
-        (args.weight_opt is not None, "--weight_opt"),
-    ]
-    for asked, flag in unported:
-        if asked:
-            raise NotImplementedError(
-                f"{flag} is not ported yet: ROADMAP.md §1, {INT8_ITEM}")
+def quant_skip_arg(text: Optional[str]) -> tuple:
+    """``--quant_skip``: None is ``DEFAULT_QUANT_SKIP``, '' nothing."""
+    if text is None:
+        return DEFAULT_QUANT_SKIP
+    return tuple(s for s in text.split(",") if s)
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -104,7 +104,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    choices=["float32", "bfloat16"])
     add_int8_flags(p)
     p.add_argument("--save_quantized", default=None,
-                   help="with --int8: save the calibrated int8 weights")
+                   help="with --int8 --trained_model: save the calibrated "
+                        "int8 state_dict (and its --quant_skip) as a torch "
+                        "file here (restores without recalibration)")
     p.add_argument("--use_ema", action="store_true",
                    help="evaluate the EMA weights of a checkpoint from an "
                         "--ema_decay run instead of the raw weights")
@@ -195,6 +197,43 @@ def make_loader(use_ema: bool = False
     return load
 
 
+def int8_loader(load_f32: Callable, model, model_q, dataset, transform,
+                args: argparse.Namespace) -> Callable:
+    """``load_fn(path)`` -> the int8 twin's state_dict, as the JAX CLI
+    makes it: a pre-quantized checkpoint (``--save_quantized``) as it is,
+    after checking its quantized convs against ``--quant_skip``; any other
+    is loaded into the float ``model``, calibrated on ``--calib_images``
+    images of ``dataset`` and quantized with the int8 flags."""
+
+    def load(path):
+        state = load_f32(path)
+        if any(k.endswith(".kernel_q") for k in state):
+            check_quantized_set(state, model_q, str(path))
+            print("restored pre-quantized checkpoint; --calib_images/"
+                  "--calib_act_stat are ignored (scales were baked in at "
+                  "--save_quantized time)")
+            return state
+        model.net.load_state_dict(state, strict=True)
+        calib = calib_batches_from_dataset(dataset, transform,
+                                           args.calib_images,
+                                           args.batch_size)
+        if args.weight_opt == "gptq":
+            calib = list(calib)  # the Hessian pass re-consumes the stream
+        means = None
+        if args.bias_correct:
+            amax, means = calibrate_amax(model, calib, return_means=True)
+        else:
+            amax = calibrate_amax(model, calib)
+        hessians = None
+        if args.weight_opt == "gptq":
+            hessians = accumulate_hessians(model, calib)
+        return quantize_variables(model_q, model.net.state_dict(), amax,
+                                  act_stat=args.calib_act_stat, means=means,
+                                  hessians=hessians)
+
+    return load
+
+
 def sweep_checkpoints(prefix: str, size: int):
     """The reference epoch schedule (eval_refinedet_coco.py:328-336):
     (paths, epochs) of the checkpoints that exist, printing each epoch
@@ -221,7 +260,6 @@ def sweep_checkpoints(prefix: str, size: int):
 
 def main(argv: Optional[List[str]] = None):
     args = parse_args(argv)
-    refuse_unported(args)
     device = resolve_device(args.device)
     size = int(args.input_size)
     root = args.dataset_root or C.COCOroot
@@ -237,7 +275,16 @@ def main(argv: Optional[List[str]] = None):
         nms_thresh=args.nms_threshold,
         objectness_thresh=args.objectness_thre)
     load_fn = make_loader(use_ema=args.use_ema)
-    evaluator = Evaluator(model, dataset, cfg, BaseTransform(size, C.MEANS),
+    eval_model = model
+    if args.int8:
+        eval_model = build_refinedet("test", size, num_classes, dtype=dtype,
+                                     device=device, quant=True,
+                                     quant_skip=quant_skip_arg(
+                                         args.quant_skip))
+        load_fn = int8_loader(load_fn, model, eval_model, dataset,
+                              BaseTransform(size, C.MEANS), args)
+    evaluator = Evaluator(eval_model, dataset, cfg,
+                          BaseTransform(size, C.MEANS),
                           batch_size=args.batch_size,
                           nms_top_k=args.nms_top_k,
                           max_per_image=args.keep_top_k)
@@ -255,6 +302,11 @@ def main(argv: Optional[List[str]] = None):
         raise SystemExit("--trained_model or --sweep required")
     state = load_fn(args.trained_model)
     print("Finished loading model!")
+    if args.int8 and args.save_quantized:
+        torch.save({"model": state,
+                    "quant_skip": list(quant_skip_arg(args.quant_skip))},
+                   args.save_quantized)
+        print(f"quantized variables saved -> {args.save_quantized}")
     all_boxes = evaluator.run(state)
     if args.show_image:
         draw_detections(dataset, all_boxes, osp.join(save_folder, "images"),

@@ -5,8 +5,9 @@ Port of the JAX package's ``eval_refinedet_voc.py`` (the reference's
 (the card unless ``--device cpu``): batched inference with per-class NMS
 on the device (kernel K1 on the card; no +1 area convention, as the
 reference's VOC path ran the torch NMS), the official per-class result
-files, and 11-point (or AUC) AP through ``eval/voc_eval.py``. The int8
-flags raise, naming the ROADMAP.md item that brings them.
+files, and 11-point (or AUC) AP through ``eval/voc_eval.py``. ``--int8``
+evaluates the int8 PTQ twin, calibrated on ``--calib_images`` eval images
+through ``quant.quantize_model``.
 """
 
 from __future__ import annotations
@@ -24,8 +25,10 @@ from refinedet_tpu_torch.device import resolve_device
 from refinedet_tpu_torch.eval import (Evaluator, evaluate_voc,
                                       write_voc_results_files)
 from refinedet_tpu_torch.eval.cli_coco import (add_int8_flags, make_loader,
-                                               refuse_unported)
+                                               quant_skip_arg)
 from refinedet_tpu_torch.models import build_refinedet
+from refinedet_tpu_torch.quant import (calib_batches_from_dataset,
+                                       quantize_model)
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -66,7 +69,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[List[str]] = None):
     args = parse_args(argv)
-    refuse_unported(args)
     device = resolve_device(args.device)
     size = int(args.input_size)
     root = args.voc_root or C.VOC_ROOT
@@ -82,9 +84,19 @@ def main(argv: Optional[List[str]] = None):
         nms_thresh=args.nms_threshold,
         objectness_thresh=args.objectness_thre)
     state = make_loader(use_ema=args.use_ema)(args.trained_model)
+    eval_model = model
+    if args.int8:
+        model.net.load_state_dict(state, strict=True)
+        eval_model, state = quantize_model(
+            model, calib_batches_from_dataset(
+                dataset, BaseTransform(size, C.VOC_MEANS),
+                args.calib_images, args.batch_size),
+            dtype=dtype, act_stat=args.calib_act_stat,
+            quant_skip=quant_skip_arg(args.quant_skip),
+            bias_correct=args.bias_correct, weight_opt=args.weight_opt)
     # The reference VOC path ran the torch NMS (no +1 area convention,
     # box_utils.py:241), unlike the COCO path's C/CUDA NMS.
-    evaluator = Evaluator(model, dataset, cfg,
+    evaluator = Evaluator(eval_model, dataset, cfg,
                           BaseTransform(size, C.VOC_MEANS),
                           batch_size=args.batch_size,
                           nms_top_k=args.nms_top_k, plus_one=False)

@@ -12,12 +12,15 @@ BN variant's batch statistics and moves its running ones.
 Parameters are float32. ``dtype=torch.bfloat16`` runs the convolutions
 in bf16 through autocast (L2Norm stays in float32 and the heads come out
 in float32), which is the JAX package's bf16 mode.
+
+``quant=True`` builds the int8 serving twin (``QuantConv2d`` trunk and
+TCB, test phase only); ``quant/ptq.py:quantize_model`` fills it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -55,9 +58,13 @@ class RefineDetModel:
     def __init__(self, phase: str, size: int, num_classes: int,
                  detector: Optional[Detect_RefineDet] = None,
                  use_bn: bool = False, dtype: torch.dtype = torch.float32,
-                 device: DeviceLike = "cuda", seed: int = 0):
+                 device: DeviceLike = "cuda", seed: int = 0,
+                 quant: bool = False, quant_skip: Sequence[str] = ()):
         if phase not in ("train", "test"):
             raise ValueError(f"phase must be 'train' or 'test', got {phase!r}")
+        if quant and phase != "test":
+            raise ValueError("int8 quantization is an inference-only "
+                             "serving mode; use phase='test'")
         if size not in SIZES:
             raise ValueError(f"supported sizes: {SIZES} (896 is the "
                              "five-source variant)")
@@ -68,9 +75,11 @@ class RefineDetModel:
         self.num_classes = num_classes
         self.use_bn = use_bn
         self.dtype = dtype
+        self.quant = quant
+        self.quant_skip = tuple(quant_skip)
         self.device = resolve_device(device)
         self.cfg = anchor_config_for(size, num_classes)
-        net = RefineDet(num_classes, size, use_bn)
+        net = RefineDet(num_classes, size, use_bn, quant, quant_skip)
         net.reset_parameters(torch.Generator().manual_seed(seed))
         self.net = net.to(self.device,
                           memory_format=torch.channels_last).eval()
@@ -111,20 +120,25 @@ def build_refinedet(phase: str, size: int = 320, num_classes: int = 21,
                     use_bn: bool = False,
                     dtype: torch.dtype = torch.float32,
                     device: DeviceLike = "cuda",
-                    seed: int = 0) -> RefineDetModel:
+                    seed: int = 0, quant: bool = False,
+                    quant_skip: Sequence[str] = ()) -> RefineDetModel:
     """Build RefineDet on ``device`` (the card unless ``device="cpu"``)
     with weights drawn from ``seed``; load trained weights with
-    ``model.net.load_state_dict(state, strict=True)``."""
+    ``model.net.load_state_dict(state, strict=True)``. ``quant=True``
+    builds the int8 serving twin, ``quant_skip`` (flax names) keeps the
+    named convs unquantized."""
     return RefineDetModel(phase, size, num_classes, detector=detector,
                           use_bn=use_bn, dtype=dtype, device=device,
-                          seed=seed)
+                          seed=seed, quant=quant, quant_skip=quant_skip)
 
 
 def build_refinedet_bn(phase: str, size: int = 320, num_classes: int = 21,
                        detector: Optional[Detect_RefineDet] = None,
                        dtype: torch.dtype = torch.float32,
                        device: DeviceLike = "cuda",
-                       seed: int = 0) -> RefineDetModel:
+                       seed: int = 0, quant: bool = False,
+                       quant_skip: Sequence[str] = ()) -> RefineDetModel:
     """The BN variant (the reference's ``refinedet_bn.py`` builder)."""
     return RefineDetModel(phase, size, num_classes, detector=detector,
-                          use_bn=True, dtype=dtype, device=device, seed=seed)
+                          use_bn=True, dtype=dtype, device=device, seed=seed,
+                          quant=quant, quant_skip=quant_skip)

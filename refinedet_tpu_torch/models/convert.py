@@ -9,6 +9,9 @@ packages can be given the same weights:
   * deconv kernels: Flax's ConvTranspose stores the spatially mirrored
     torch kernel, so it is transposed to ``[in, out, kh, kw]`` and flipped
     back;
+  * quantized convs (the int8 twin's ``QuantConv`` leaves): ``kernel_q``
+    int8 HWIO -> ``[out, kh, kw, in]`` (the int8 conv kernel's layout);
+    ``w_scale``, ``in_scale`` and ``bias`` as they are;
   * BatchNorm: ``params`` scale/bias -> ``weight``/``bias``,
     ``batch_stats`` mean/var -> ``running_mean``/``running_var``, and
     ``num_batches_tracked`` 0 (torch's key, never read at a fixed
@@ -93,6 +96,12 @@ def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
             state[module + ".running_var"] = _tensor(stats[flax_name]["var"])
             state[module + ".num_batches_tracked"] = torch.tensor(
                 0, dtype=torch.int64)
+        elif "kernel_q" in leaf:
+            state[module + ".kernel_q"] = torch.from_numpy(np.array(
+                np.transpose(np.asarray(leaf["kernel_q"], np.int8),
+                             (3, 0, 1, 2)), order="C"))
+            for key in ("w_scale", "in_scale", "bias"):
+                state[module + "." + key] = _tensor(leaf[key])
         else:
             state[module + ".weight"] = (_deconv if kind == "deconv"
                                          else _conv)(leaf["kernel"])

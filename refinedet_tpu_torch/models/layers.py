@@ -2,8 +2,9 @@
 
 Port of ``refinedet_tpu/models/layers.py``: the L2Norm tap and the 2x2
 stride-2 max pools of the VGG trunk, plus the BatchNorm of the BN variant
-with the semantics of the JAX package's ``flax.linen.BatchNorm``. The int8
-``QuantConv`` and the slice-backward pool are not ported yet.
+with the semantics of the JAX package's ``flax.linen.BatchNorm``, and the
+int8 ``QuantConv`` as ``QuantConv2d``. The slice-backward pool is not
+ported.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from refinedet_tpu_torch.ops.int8_conv import int8_conv
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -68,3 +71,71 @@ class L2Norm(nn.Module):
 def max_pool_2x2(ceil_mode: bool = False) -> nn.MaxPool2d:
     """2x2 stride-2 max pool; ``ceil_mode`` rounds odd sizes up (pool3)."""
     return nn.MaxPool2d(2, 2, ceil_mode=ceil_mode)
+
+
+class QuantConv2d(nn.Module):
+    """Int8 post-training-quantized convolution (inference only), the
+    counterpart of ``refinedet_tpu/models/layers.py:QuantConv``.
+
+    Symmetric quantization with per-input-channel activation scales folded
+    into the weights (``quant/ptq.py``): ``xq[c] = clamp(round(x[c] *
+    (1 / in_scale[c])), -127, 127)``, then ``int8_conv(xq, kernel_q) *
+    w_scale + bias``. Buffers, not parameters: ``kernel_q`` int8 ``[O, kh,
+    kw, C]`` (the kernel's layout; flax's is HWIO), ``w_scale`` ``[O]``,
+    ``in_scale`` ``[C]`` and ``bias`` ``[O]`` float32; ``quant.ptq.
+    quantize_variables`` fills them (here they start as flax's init:
+    zeros, ones, ones, zeros).
+
+    Rounding as JAX's: ``1 / in_scale`` by IEEE division in float32 (a
+    tensor divided by a tensor, which the card also divides; a tensor
+    divided by a Python float it would turn into a reciprocal multiply),
+    a float32 multiply, round half to even, then the clamp. The input is
+    NCHW with channels-last strides, so its NHWC view is contiguous. The
+    output dtype is the JAX module's ``dtype``: bfloat16 under bf16
+    autocast (the port's bf16 mode, which does not cast a custom op's
+    output), float32 otherwise; it is given to the op explicitly.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int, stride: int = 1, padding: int = 0,
+                 dilation: int = 1):
+        super().__init__()
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.kernel_size = kernel_size
+        self.stride = stride
+        self.padding = padding
+        self.dilation = dilation
+        k = kernel_size
+        self.register_buffer("kernel_q", torch.zeros(
+            (out_channels, k, k, in_channels), dtype=torch.int8))
+        self.register_buffer("w_scale", torch.ones(out_channels))
+        self.register_buffer("in_scale", torch.ones(in_channels))
+        self.register_buffer("bias", torch.zeros(out_channels))
+
+    def _apply(self, fn, recurse=True):
+        # ``Module.to(memory_format=torch.channels_last)`` restrides every
+        # 4-d tensor; the kernel reads each row of kernel_q K-contiguous.
+        super()._apply(fn, recurse)
+        self.kernel_q = self.kernel_q.contiguous()
+        return self
+
+    def extra_repr(self) -> str:
+        return (f"{self.in_channels}, {self.out_channels}, kernel_size="
+                f"{self.kernel_size}, stride={self.stride}, padding="
+                f"{self.padding}, dilation={self.dilation}")
+
+    def quantize_input(self, x: torch.Tensor) -> torch.Tensor:
+        """``x [B, C, H, W]`` -> int8 of the same layout."""
+        inv = torch.div(torch.ones_like(self.in_scale), self.in_scale)
+        xq = torch.round(x.float() * inv.view(1, -1, 1, 1))
+        return torch.clamp(xq, -127.0, 127.0).to(torch.int8)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dev = x.device.type
+        out_dtype = torch.get_autocast_dtype(dev) \
+            if torch.is_autocast_enabled(dev) else torch.float32
+        xq = self.quantize_input(x).permute(0, 2, 3, 1)
+        y = int8_conv(xq, self.kernel_q, self.w_scale, self.bias,
+                      self.stride, self.padding, self.dilation, out_dtype)
+        return y.permute(0, 3, 1, 2)

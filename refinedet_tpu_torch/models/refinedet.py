@@ -16,6 +16,13 @@ Variants, as in the JAX module:
     statistics and moves the running ones.
   * ``size=896``: five sources, the first an extra stride-4 source tapped
     after conv3_3 (``conv3_3_L2Norm``, scale 10).
+  * ``quant``: the int8 serving twin. The quantizable convs (JAX's set:
+    every VGG conv but conv1_1, conv6, conv7, both extras and the three
+    TCB convs of each level) become ``layers.QuantConv2d``, but those
+    ``quant_skip`` names; heads, L2Norm and the deconvs stay as they are.
+    ``quant_skip`` takes the JAX package's (flax) names, ``vgg_conv1_2``
+    and so on (``convert.module_names`` maps them to module paths). The
+    BN variant keeps its BN after each quantized conv.
 
 Submodules carry the reference network's state_dict names (``vgg.N``,
 ``extras.N``, ``arm_loc.i``, ``tcb0.{3i,3i+2}``, ``tcb1.i``,
@@ -27,13 +34,13 @@ strict-loads.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from refinedet_tpu_torch.models.layers import BatchNorm2d, L2Norm, \
-    max_pool_2x2
+    QuantConv2d, max_pool_2x2
 
 # VGG-16 convs (name, width); "M" is a 2x2 pool, "C" the ceil-mode pool3.
 VGG_CFG = (("conv1_1", 64), ("conv1_2", 64), "M",
@@ -90,11 +97,32 @@ def source_channels(size: int) -> Tuple[int, ...]:
     return (256,) + SOURCE_CHANNELS if size == 896 else SOURCE_CHANNELS
 
 
-def _vgg_module(entry) -> nn.Module:
+def quantizable_names(num_sources: int = 4) -> Tuple[str, ...]:
+    """The flax names of the convs the int8 twin may quantize, in the
+    order the forward runs them (``refinedet_tpu/models/refinedet.py``:
+    ``quantizable=True``)."""
+    vgg = [f"vgg_{e[1]}" for e in vgg_layout() if e[0] == "conv"
+           and e[1] != "conv1_1"]
+    tcb = []
+    for i in reversed(range(num_sources)):
+        tcb += [f"tcb0_{i}_conv1", f"tcb0_{i}_conv2", f"tcb2_{i}_conv"]
+    return tuple(vgg + ["extra_conv1", "extra_conv2"] + tcb)
+
+
+def _conv(c_in: int, c_out: int, quant: bool, kernel_size: int,
+          stride: int = 1, padding: int = 0, dilation: int = 1) -> nn.Module:
+    if quant:
+        return QuantConv2d(c_in, c_out, kernel_size, stride, padding,
+                           dilation)
+    return nn.Conv2d(c_in, c_out, kernel_size, stride=stride,
+                     padding=padding, dilation=dilation)
+
+
+def _vgg_module(entry, quantized: Sequence[str]) -> nn.Module:
     kind = entry[0]
     if kind == "conv":
-        _, _, c_in, c_out, kw = entry
-        return nn.Conv2d(c_in, c_out, **kw)
+        _, name, c_in, c_out, kw = entry
+        return _conv(c_in, c_out, f"vgg_{name}" in quantized, **kw)
     if kind == "bn":
         return BatchNorm2d(entry[2])
     if kind == "relu":
@@ -106,13 +134,22 @@ class RefineDet(nn.Module):
     """VGG-16 trunk + extras + ARM heads + TCB fusion + ODM heads."""
 
     def __init__(self, num_classes: int = 21, size: int = 320,
-                 use_bn: bool = False):
+                 use_bn: bool = False, quant: bool = False,
+                 quant_skip: Sequence[str] = ()):
         super().__init__()
         self.num_classes = num_classes
         self.size = size
         self.use_bn = use_bn
+        self.quant = quant
+        self.quant_skip = tuple(quant_skip)
+        sources = source_channels(size)
+        # flax names of the quantizable convs not skipped: calibrated in
+        # the float network, QuantConv2d in the int8 twin
+        self.calibrated = tuple(n for n in quantizable_names(len(sources))
+                                if n not in self.quant_skip)
+        quantized = self.calibrated if quant else ()
         layout = vgg_layout(use_bn)
-        self.vgg = nn.ModuleList([_vgg_module(e) for e in layout])
+        self.vgg = nn.ModuleList([_vgg_module(e, quantized) for e in layout])
         relu_at = {e[1]: i for i, e in enumerate(layout) if e[0] == "relu"}
         width = {e[1]: e[3] for e in layout if e[0] == "conv"}
         # vgg index -> the L2Norm applied to that layer's output
@@ -122,17 +159,15 @@ class RefineDet(nn.Module):
                 continue
             self.add_module(name, L2Norm(width[conv], scale))
             self._taps[relu_at[conv]] = name
+        extra1 = _conv(1024, 256, "extra_conv1" in quantized, 1)
+        extra2 = _conv(256, 512, "extra_conv2" in quantized, 3, stride=2,
+                       padding=1)
         if use_bn:
             self.extras = nn.ModuleList([
-                nn.Conv2d(1024, 256, 1), BatchNorm2d(256),
-                nn.ReLU(inplace=True),
-                nn.Conv2d(256, 512, 3, stride=2, padding=1), BatchNorm2d(512),
-                nn.ReLU(inplace=True)])
+                extra1, BatchNorm2d(256), nn.ReLU(inplace=True),
+                extra2, BatchNorm2d(512), nn.ReLU(inplace=True)])
         else:
-            self.extras = nn.ModuleList([
-                nn.Conv2d(1024, 256, 1),
-                nn.Conv2d(256, 512, 3, stride=2, padding=1)])
-        sources = source_channels(size)
+            self.extras = nn.ModuleList([extra1, extra2])
         a = ANCHORS_PER_CELL
         self.arm_loc = nn.ModuleList(
             [nn.Conv2d(c, a * 4, 3, padding=1) for c in sources])
@@ -145,12 +180,15 @@ class RefineDet(nn.Module):
              for _ in sources])
         tcb0: List[nn.Module] = []
         tcb2: List[nn.Module] = []
-        for c in sources:
-            tcb0 += [nn.Conv2d(c, TCB_CHANNELS, 3, padding=1),
+        for i, c in enumerate(sources):
+            tcb0 += [_conv(c, TCB_CHANNELS, f"tcb0_{i}_conv1" in quantized,
+                           3, padding=1),
                      nn.ReLU(inplace=True),
-                     nn.Conv2d(TCB_CHANNELS, TCB_CHANNELS, 3, padding=1)]
+                     _conv(TCB_CHANNELS, TCB_CHANNELS,
+                           f"tcb0_{i}_conv2" in quantized, 3, padding=1)]
             tcb2 += [nn.ReLU(inplace=True),
-                     nn.Conv2d(TCB_CHANNELS, TCB_CHANNELS, 3, padding=1),
+                     _conv(TCB_CHANNELS, TCB_CHANNELS,
+                           f"tcb2_{i}_conv" in quantized, 3, padding=1),
                      nn.ReLU(inplace=True)]
         self.tcb0 = nn.ModuleList(tcb0)
         self.tcb1 = nn.ModuleList(

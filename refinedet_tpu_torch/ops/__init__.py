@@ -1,3 +1,5 @@
+# The module registers the op refinedet_tpu_torch::int8_conv.
+from refinedet_tpu_torch.ops import int8_conv  # noqa: F401
 from refinedet_tpu_torch.ops.dispatch import (batched_nms_auto,
                                               class_parallel_nms)
 from refinedet_tpu_torch.ops.nms import (NmsResult, nms, nms_sweep_reference,

@@ -37,28 +37,20 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 import threading
-import time
 from pathlib import Path
 from typing import Optional
 
 import torch
 
+from refinedet_tpu_torch.ops.cuda_build import BUILD_DIR, HOPPER_FLAGS, \
+    nvcc_build
 from refinedet_tpu_torch.ops.nms import as_f32, nms_sweep_reference
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "nms_sweep.cu"
-BUILD_DIR = _PKG / "_build"
+SOURCE = BUILD_DIR.parent / "csrc" / "nms_sweep.cu"
 # --fmad=false and the default IEEE division keep the IoU op for op equal
-# to the plain version's; -Xptxas -v reports registers and shared memory.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+# to the plain version's.
+NVCC_FLAGS = HOPPER_FLAGS + ("--fmad=false",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,38 +68,11 @@ _lock = threading.Lock()
 _library: Optional[KernelLibrary] = None
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin",
-                                                      "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (neither on PATH nor under "
-                       f"{cuda_home}); it is needed to build the NMS kernel")
-
-
 def build_library(source: Path = SOURCE) -> KernelLibrary:
     """Build (once per source text and flags) and load a K1 library from
     ``source``. The main path takes ``SOURCE``; a measurement may build a
     variant of it."""
-    tag = hashlib.sha256(source.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libnms_sweep_{tag}.so"
-    seconds, log = 0.0, ""
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
-                              capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = (proc.stdout + proc.stderr).strip()
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed with code {proc.returncode} "
-                               f"building {source}:\n{log}")
-        os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
+    out, seconds, log = nvcc_build(source, NVCC_FLAGS, "nms_sweep")
     lib = ctypes.CDLL(str(out))
     lib.nms_sweep_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,

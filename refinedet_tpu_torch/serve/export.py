@@ -14,8 +14,12 @@ with ``torch.export``, weights included; ``save_serving`` writes it to one
 file and ``load_serving`` reads it back as a ``ServingModel`` without any
 model class: the serving host needs torch, numpy and
 ``refinedet_tpu_torch.ops`` (which registers K1 as the op
-``refinedet_tpu_torch::nms_sweep``, one node of the exported graph). One
-artifact serves any batch size when exported with a symbolic batch.
+``refinedet_tpu_torch::nms_sweep`` and the int8 convolution as
+``refinedet_tpu_torch::int8_conv``, one node of the exported graph each).
+One artifact serves any batch size when exported with a symbolic batch.
+The int8 twin (``build_refinedet(..., quant=True)`` filled by
+``quant.quantize_model``) exports the same way; its metadata says
+``"int8": true`` and the ``quant_skip`` it was built with.
 
 File format: ``MAGIC | u32 json_len | json metadata | torch.export.save
 bytes``. MAGIC is not the JAX package's, so each loader refuses the other
@@ -50,7 +54,7 @@ from torch import nn
 
 from refinedet_tpu_torch.config import VOC_MEANS, DetectConfig
 from refinedet_tpu_torch.detect.detection import detect_refinedet
-from refinedet_tpu_torch.ops import nms_cuda
+from refinedet_tpu_torch.ops import int8_conv, nms_cuda
 from refinedet_tpu_torch.ops.dispatch import class_parallel_nms
 
 MAGIC = b"RDTPUTORCH1\n"
@@ -285,7 +289,8 @@ def serving_metadata(model, batch_size: Optional[int] = None,
         "num_classes": model.num_classes,
         "batch_size": batch_size,  # None = symbolic (any batch)
         "use_bn": model.use_bn,
-        "int8": False,
+        "int8": bool(model.quant),
+        "quant_skip": list(model.quant_skip) if model.quant else None,
         "device": str(model.priors.device),
         "dtype": str(model.dtype).replace("torch.", ""),
         "fused_nms": dict(fused_nms) if fused_nms is not None else None,
@@ -327,13 +332,14 @@ def save_serving(model, state: Optional[Mapping], path: str,
 
 class BucketGraph:
     """The artifact at one batch size as one CUDA graph: a static input
-    buffer, the graph, its static outputs, and the K1 launches it holds.
+    buffer, the graph, its static outputs, and the kernel launches it
+    holds.
 
-    Capture runs the module twice on a side stream first (K1's build,
-    cuDNN's plans, the allocator's warm-up); a capture that fails raises.
-    K1's wrapper counts a launch recorded into the graph in
-    ``nms_sweep.captured``; every replay adds the graph's launches to
-    ``nms_sweep.launches``.
+    Capture runs the module twice on a side stream first (the kernels'
+    builds, cuDNN's plans, the allocator's warm-up); a capture that fails
+    raises. The kernels' wrappers count a launch recorded into the graph
+    in ``nms_sweep.captured`` (K1) and ``int8_conv.captured``; every
+    replay adds the graph's launches to their ``launches``.
     """
 
     def __init__(self, module: nn.Module, static_in: torch.Tensor,
@@ -347,9 +353,11 @@ class BucketGraph:
         torch.cuda.current_stream(static_in.device).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
         before = nms_cuda.nms_sweep.captured
+        before_int8 = int8_conv.int8_conv.captured
         with torch.cuda.graph(self.graph, pool=pool):
             self.out = module(static_in)
         self.launches = nms_cuda.nms_sweep.captured - before
+        self.int8_launches = int8_conv.int8_conv.captured - before_int8
 
     def replay(self, images: torch.Tensor):
         """Copy ``images`` (host) into the static input, replay, and
@@ -357,6 +365,7 @@ class BucketGraph:
         self.static_in.copy_(images)
         self.graph.replay()
         nms_cuda.nms_sweep.launches += self.launches
+        int8_conv.int8_conv.launches += self.int8_launches
         return self.out
 
 
@@ -414,6 +423,8 @@ class ServingModel:
                                             dtype=dtype))
                 return
             nms_cuda.load_kernel()
+            if self.meta.get("int8"):
+                int8_conv.load_kernel()
             pool = torch.cuda.graph_pool_handle()
             for b in sorted(set(batch_sizes), reverse=True):
                 static_in = torch.zeros((b, *self.input_shape), dtype=dtype,
@@ -424,7 +435,7 @@ class ServingModel:
 def load_serving(path: str) -> ServingModel:
     """Load an artifact written by ``save_serving``. Needs torch and
     ``refinedet_tpu_torch.ops`` (imported by this module: it registers
-    the K1 op the program calls), and no model class, checkpoint or
+    the K1 and int8-conv ops the program calls), and no model class, checkpoint or
     config. Raises for a file of the JAX package, and for a CUDA artifact
     on a host without a card; never moves an artifact to another
     device."""

@@ -15,14 +15,20 @@ with its flags. Two targets, one CLI:
 
 Checkpoints are read as the eval CLIs read them
 (``eval/cli_coco.py:make_loader``): a port training checkpoint or a bare
-reference-key ``.pth``. ``--int8`` and ``--quant_skip`` are not ported
-yet and raise.
+reference-key ``.pth``. ``--int8`` exports the int8 PTQ twin from a
+pre-quantized checkpoint (written by ``python -m
+refinedet_tpu_torch.eval.cli_coco --int8 --save_quantized``), whose
+quantized convs must match ``--quant_skip``; each quantized conv is the op
+``refinedet_tpu_torch::int8_conv`` in the artifact.
 
 Examples::
 
   python -m refinedet_tpu_torch.tools.export_serving --checkpoint \\
       weights/RefineDet320_COCO_epoches_final.pth --input_size 320 \\
       --num_classes 2 --fused_nms --out refinedet320.rdtpu
+  python -m refinedet_tpu_torch.tools.export_serving --int8 \\
+      --checkpoint refinedet320_int8.pth --input_size 320 --num_classes 21 \\
+      --fused_nms --out refinedet320_int8.rdtpu
   python -m refinedet_tpu_torch.tools.export_serving --format torch \\
       --checkpoint ... --out refinedet320.pth
 """
@@ -35,8 +41,9 @@ from typing import List, Optional
 
 import torch
 
-from refinedet_tpu_torch.eval.cli_coco import INT8_ITEM, make_loader
+from refinedet_tpu_torch.eval.cli_coco import make_loader, quant_skip_arg
 from refinedet_tpu_torch.models import build_refinedet
+from refinedet_tpu_torch.quant.ptq import check_quantized_set
 from refinedet_tpu_torch.serve.export import save_serving
 
 
@@ -59,10 +66,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="export the EMA weights of a training checkpoint "
                         "(an --ema_decay run) instead of the raw ones")
     p.add_argument("--int8", action="store_true",
-                   help="int8 PTQ twin (not ported yet)")
+                   help="serving: export the int8 PTQ twin from a "
+                        "PRE-QUANTIZED checkpoint (written by python -m "
+                        "refinedet_tpu_torch.eval.cli_coco --int8 "
+                        "--save_quantized)")
     p.add_argument("--quant_skip", default=None,
-                   help="with --int8: conv names kept bf16 (not ported "
-                        "yet)")
+                   help="with --int8: conv names kept bf16, matching the "
+                        "checkpoint's set (default: quant.DEFAULT_QUANT_SKIP)")
     p.add_argument("--batch_size", type=int, default=0,
                    help="serving: fixed batch; 0 = symbolic (any batch)")
     p.add_argument("--device", default="cuda",
@@ -98,12 +108,15 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
-    for asked, flag in ((args.int8, "--int8"),
-                        (args.quant_skip is not None, "--quant_skip")):
-        if asked:
-            raise NotImplementedError(
-                f"{flag} is not ported yet: ROADMAP.md §1, {INT8_ITEM}")
+    if args.int8 and args.format == "torch":
+        raise SystemExit("--int8 applies to --format serving only "
+                         "(the reference stack has no int8 path)")
     state = make_loader(use_ema=args.use_ema)(args.checkpoint)
+    if args.int8 and not any(k.endswith(".kernel_q") for k in state):
+        raise SystemExit(
+            f"--int8: {args.checkpoint} holds no quantized convs; write one "
+            "with python -m refinedet_tpu_torch.eval.cli_coco --int8 "
+            "--save_quantized first")
 
     if args.format == "torch":
         # Strict-load into the network the flags name, so a checkpoint of
@@ -129,13 +142,18 @@ def main(argv: Optional[List[str]] = None) -> None:
         mean = tuple(float(s) for s in args.input_mean.split(","))
     model = build_refinedet("test", args.input_size, args.num_classes,
                             use_bn=args.bn, dtype=getattr(torch, args.dtype),
-                            device=args.device)
+                            device=args.device, quant=args.int8,
+                            quant_skip=quant_skip_arg(args.quant_skip)
+                            if args.int8 else ())
+    if args.int8:
+        check_quantized_set(state, model, args.checkpoint)
     meta = save_serving(model, state, args.out,
                         batch_size=args.batch_size or None, fused_nms=fused,
                         uint8_input=args.uint8_wire, input_mean=mean)
     size = os.path.getsize(args.out)
     print(f"wrote serving artifact: {args.out} ({size / 1e6:.1f} MB)")
-    for k in ("input_size", "num_classes", "batch_size", "device", "dtype"):
+    for k in ("input_size", "num_classes", "batch_size", "device", "dtype",
+              "int8"):
         print(f"  {k}: {meta[k]}")
 
 

@@ -5,12 +5,14 @@ from the same bare ``.pth``, on the CPU (``--device cpu --dtype float32``,
 RefineDet320, batch 2, top_k 50): the printed AP values agree, and so do
 the result files (rows in the same order; boxes to the end-to-end
 tolerance of test_torch_port_eval.py, scores to 1e-5, or to the files'
-printed precision). Also: the unported flags, the card default and the
-checkpoint formats the loader refuses.
+printed precision). Also: the int8 flags (each reaches the quantizer; one
+real ``--int8 --save_quantized`` run and its re-read), the card default
+and the checkpoint formats the loader refuses.
 """
 
 import json
 import sys
+import types
 from pathlib import Path
 
 import jax
@@ -201,20 +203,164 @@ def test_voc_cli_matches_jax(pth, voc_root, tmp_path, monkeypatch, capsys):
     assert n > 10
 
 
+class Reached(Exception):
+    """Raised by the stubs once the flags reached the quantizer."""
+
+
+class _Net:
+    def load_state_dict(self, state, strict=True):
+        pass
+
+    def state_dict(self):
+        return {}
+
+
+def _stub_quantizer(monkeypatch, cli):
+    """Replace the CLI's models and quantizer by stubs that record what
+    reaches them (no network is built, no calibration runs). COCO: the
+    calibration stream, calibrate_amax, accumulate_hessians and
+    quantize_variables, whose small state goes on to ``--save_quantized``,
+    and the Evaluator, whose run stops there. VOC: the calibration stream
+    and quantize_model."""
+    seen = {}
+
+    def build(phase, size, num_classes, dtype=None, device=None,
+              quant=False, quant_skip=()):
+        return types.SimpleNamespace(net=_Net(), quant=quant,
+                                     quant_skip=tuple(quant_skip),
+                                     dtype=dtype)
+
+    monkeypatch.setattr(cli, "build_refinedet", build)
+
+    def calib(dataset, transform, num_images, batch_size):
+        seen["calib"] = (num_images, batch_size)
+        return iter([np.zeros((1, 320, 320, 3), np.float32)])
+
+    monkeypatch.setattr(cli, "calib_batches_from_dataset", calib)
+    if cli is cli_voc:
+        def quantize_model(model, batches, **kw):
+            seen["quantize_model"] = kw
+            raise Reached
+        monkeypatch.setattr(cli, "quantize_model", quantize_model)
+        return seen
+
+    def calibrate_amax(model, batches, return_means=False):
+        seen["return_means"] = return_means
+        return ({}, {"m": 1}) if return_means else {}
+
+    def accumulate_hessians(model, batches, names=None):
+        seen["hessians"] = True
+        return {"h": 1}
+
+    def quantize_variables(model_q, state, amax, **kw):
+        seen["model_q"] = model_q
+        seen.update(kw)
+        return {"vgg.2.kernel_q": torch.zeros(2, dtype=torch.int8)}
+
+    class Evaluator:
+        def __init__(self, model, *args, **kwargs):
+            seen["evaluated"] = model
+
+        def run(self, state):
+            seen["run"] = state
+            raise Reached
+
+    monkeypatch.setattr(cli, "calibrate_amax", calibrate_amax)
+    monkeypatch.setattr(cli, "accumulate_hessians", accumulate_hessians)
+    monkeypatch.setattr(cli, "quantize_variables", quantize_variables)
+    monkeypatch.setattr(cli, "Evaluator", Evaluator)
+    return seen
+
+
 @pytest.mark.parametrize("cli", [cli_coco, cli_voc], ids=["coco", "voc"])
 @pytest.mark.parametrize("flag", [
     ["--int8"], ["--calib_images", "4"], ["--calib_act_stat", "amax"],
     ["--quant_skip", ""], ["--bias_correct"], ["--weight_opt", "gptq"],
     ["--save_quantized", "q"]])
-def test_unported_flags_raise(cli, flag, pth):
+def test_int8_flags_reach_the_quantizer(cli, flag, pth, voc_root,
+                                        tmp_path, monkeypatch):
+    """Each int8 flag of each CLI is taken up and reaches the quantizer
+    with its value (the JAX CLIs' defaults otherwise); the VOC CLI has no
+    ``--save_quantized``, as JAX's has none."""
     if cli is cli_voc and flag[0] == "--save_quantized":
         with pytest.raises(SystemExit):  # no such flag in the VOC CLI
             cli.parse_args(["--trained_model", pth[21], *flag])
         return
-    argv = ["--trained_model", pth[21], "--device", "cpu", *flag]
-    with pytest.raises(NotImplementedError,
-                       match=f"{flag[0]} is not ported.*item 7"):
+    if flag[0] == "--save_quantized":
+        flag = [flag[0], str(tmp_path / flag[1])]
+    seen = _stub_quantizer(monkeypatch, cli)
+    if cli is cli_coco:
+        root = str(tmp_path / "coco")
+        make_coco_dataset(root, split="test", num_images=2, img_size=64)
+        data = ["--dataset_root", root]
+    else:
+        data = ["--voc_root", voc_root]
+    argv = ["--trained_model", pth[21 if cli is cli_voc else 2], "--device",
+            "cpu", "--input_size", "320", "--batch_size", "2", "--int8",
+            *data, *([] if flag == ["--int8"] else flag)]
+    with pytest.raises(Reached):
         cli.main(argv)
+    opts = dict(calib_images=16, act_stat="p9999",
+                quant_skip=("vgg_conv1_2", "vgg_conv2_1"),
+                bias_correct=False, weight_opt="none")
+    value = {"--calib_images": ("calib_images", 4),
+             "--calib_act_stat": ("act_stat", "amax"),
+             "--quant_skip": ("quant_skip", ()),
+             "--bias_correct": ("bias_correct", True),
+             "--weight_opt": ("weight_opt", "gptq")}.get(flag[0])
+    if value is not None:
+        opts[value[0]] = value[1]
+    assert seen["calib"] == (opts["calib_images"], 2)
+    if cli is cli_voc:
+        got = seen["quantize_model"]
+        assert (got["act_stat"], got["quant_skip"], got["bias_correct"],
+                got["weight_opt"], got["dtype"]) == (
+                    opts["act_stat"], opts["quant_skip"],
+                    opts["bias_correct"], opts["weight_opt"],
+                    torch.bfloat16)
+        return
+    assert seen["model_q"].quant and seen["evaluated"] is seen["model_q"]
+    assert seen["model_q"].quant_skip == opts["quant_skip"]
+    assert seen["act_stat"] == opts["act_stat"]
+    assert seen["return_means"] == opts["bias_correct"]
+    assert (seen["means"] is not None) == opts["bias_correct"]
+    assert (seen["hessians"] is not None) == (opts["weight_opt"] == "gptq")
+    assert list(seen["run"]) == ["vgg.2.kernel_q"]
+    if flag[0] == "--save_quantized":
+        saved = torch.load(flag[1], weights_only=True)
+        assert saved["quant_skip"] == list(opts["quant_skip"])
+        assert list(saved["model"]) == ["vgg.2.kernel_q"]
+
+
+def test_int8_save_quantized_and_reread(pth, tmp_path, capsys):
+    """A real ``--int8 --save_quantized`` run at 320 (2 calibration
+    images), then the file read back: no recalibration and the same AP
+    stats; another ``--quant_skip`` is refused before anything runs. The
+    convs above 20x20 stay float (on the CPU the int8 conv is a float64
+    convolution)."""
+    skip = ("vgg_conv1_2,vgg_conv2_1,vgg_conv2_2,vgg_conv3_1,vgg_conv3_2,"
+            "vgg_conv3_3,vgg_conv4_1,vgg_conv4_2,vgg_conv4_3,tcb0_0_conv1,"
+            "tcb0_0_conv2,tcb2_0_conv")
+    root = str(tmp_path / "coco")
+    make_coco_dataset(root, split="test", num_images=2, img_size=64, seed=3)
+    saved = str(tmp_path / "int8.pth")
+    base = ["--dataset_root", root, "--keep_top_k", "50", "--int8",
+            "--calib_images", "2"] + COMMON + [str(tmp_path / "e")]
+    stats, out = _port_main(cli_coco, ["--trained_model", pth[2],
+                                       "--save_quantized", saved,
+                                       "--quant_skip", skip] + base, capsys)
+    assert f"quantized variables saved -> {saved}" in out
+    obj = torch.load(saved, weights_only=True)
+    assert obj["quant_skip"] == skip.split(",")
+    assert sum(k.endswith(".kernel_q") for k in obj["model"]) == 16
+    again, out2 = _port_main(cli_coco, ["--trained_model", saved,
+                                        "--quant_skip", skip] + base, capsys)
+    assert "restored pre-quantized checkpoint" in out2
+    assert _line(out2, "AP stats:") == _line(out, "AP stats:")
+    np.testing.assert_array_equal(again, stats)
+    with pytest.raises(ValueError, match="different --quant_skip.*lacks "
+                       r"\['tcb0_0_conv1'.*'vgg_conv4_3'\]"):
+        cli_coco.main(["--trained_model", saved, "--device", "cpu"] + base)
 
 
 @pytest.mark.parametrize("cli", [cli_coco, cli_voc], ids=["coco", "voc"])

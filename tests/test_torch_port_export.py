@@ -1,8 +1,8 @@
 """Port parity: the serving artifact of ``refinedet_tpu_torch.serve``
 (``export_inference``, ``save_serving``, ``load_serving``), the export CLI
-``refinedet_tpu_torch.tools.export_serving`` and the server's
-``--artifact``, on the CPU, against the JAX package's artifact and the
-port's live serving function.
+``refinedet_tpu_torch.tools.export_serving`` (``--int8`` included) and
+the server's ``--artifact``, on the CPU, against the JAX package's
+artifact and the port's live serving function.
 
 One module fixture gives both packages the same RefineDet320 weights (2
 classes), saves them once as a port ``.pth``, and exports each artifact
@@ -52,7 +52,10 @@ from refinedet_tpu_torch.serve import (BatchingEngine,  # noqa: E402
                                        save_serving)
 from refinedet_tpu_torch.serve import export as port_export  # noqa: E402
 from refinedet_tpu_torch.serve import server as port_server  # noqa: E402
+from refinedet_tpu_torch.quant import (DEFAULT_QUANT_SKIP,  # noqa: E402
+                                       quantize_variables)
 from refinedet_tpu_torch.tools import export_serving  # noqa: E402
+from refinedet_tpu_torch.tools.int8_bench import made_up_stats  # noqa: E402
 
 from test_torch_port_eval import assert_separated  # noqa: E402
 
@@ -214,8 +217,8 @@ def test_each_loader_refuses_the_other_package(art, tmp_path):
 def test_metadata_keys(art):
     meta = art["serving"].meta
     want = (set(art["jmeta"]) - {"platforms", "jax_version"}) | \
-        {"device", "dtype", "torch_version"}
-    assert set(meta) == want
+        {"device", "dtype", "torch_version", "quant_skip"}
+    assert set(meta) == want and meta["quant_skip"] is None
     assert meta["format"] == "refinedet-tpu-torch-serving"
     assert (meta["input_size"], meta["num_classes"], meta["use_bn"],
             meta["int8"]) == (SIZE, NUM_CLASSES, False, False)
@@ -328,9 +331,76 @@ def test_torch_format_matches_jax(art, tmp_path, use_ema):
         assert torch.equal(got[k], v), k
 
 
-@pytest.mark.parametrize("flag", [["--int8"], ["--quant_skip", "conv1_1"]])
-def test_int8_not_ported(art, tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        export_serving.main(["--checkpoint", str(art["pth"]), "--out",
-                             str(tmp_path / "q.rdtpu"), "--device", "cpu"]
-                            + flag)
+# The convs above 20x20 stay float: on the CPU the int8 conv is its plain
+# version, a float64 convolution, and at 320 the high-resolution ones
+# would make each int8 forward seconds long.
+HIRES_SKIP = DEFAULT_QUANT_SKIP + (
+    "vgg_conv2_2", "vgg_conv3_1", "vgg_conv3_2", "vgg_conv3_3",
+    "vgg_conv4_1", "vgg_conv4_2", "vgg_conv4_3", "tcb0_0_conv1",
+    "tcb0_0_conv2", "tcb2_0_conv")
+
+
+@pytest.fixture(scope="module")
+def int8_pth(art):
+    """The fixture's weights quantized (made-up per-channel statistics, no
+    calibration forward) with ``HIRES_SKIP``, as ``cli_coco --int8
+    --save_quantized`` writes them."""
+    model_q = build_refinedet("test", SIZE, NUM_CLASSES, device="cpu",
+                              quant=True, quant_skip=HIRES_SKIP)
+    state_q = quantize_variables(model_q, art["state"],
+                                 made_up_stats(model_q.net, 4))
+    model_q.net.load_state_dict(state_q, strict=True)
+    path = art["dir"] / "int8.pth"
+    torch.save({"model": state_q, "quant_skip": list(HIRES_SKIP)}, path)
+    return path, model_q
+
+
+def test_int8_artifact_round_trip(art, int8_pth, tmp_path):
+    """``--int8`` through the CLI: every quantized conv one
+    ``refinedet_tpu_torch::int8_conv`` node, ``"int8": true`` with its
+    skip in the metadata, the loaded artifact equal to the live int8
+    function, and the server's ``--artifact`` answering with it."""
+    path, model_q = int8_pth
+    out = tmp_path / "int8.rdtpu"
+    export_serving.main(["--int8", "--checkpoint", str(path), "--out",
+                         str(out), "--device", "cpu", "--dtype", "float32",
+                         "--num_classes", str(NUM_CLASSES), "--fused_nms",
+                         "--quant_skip", ",".join(HIRES_SKIP)])
+    serving = load_serving(str(out))
+    assert serving.meta["int8"] is True
+    assert serving.meta["quant_skip"] == list(HIRES_SKIP)
+    nodes = sum("int8_conv" in str(node.target)
+                for mod in serving.program.graph_module.modules()
+                if isinstance(mod, torch.fx.GraphModule)
+                for node in mod.graph.nodes)
+    assert nodes == 28 - len(HIRES_SKIP) == 16
+    imgs = _images(40)
+    got = serving(imgs)
+    want = make_serving_fn(model_q, None, fused_nms={})(imgs)
+    assert got.shape == (1, NUM_CLASSES - 1, 200, 5)
+    np.testing.assert_array_equal(got, want)
+    srv = port_server.make_server(port_server.parse_args(
+        ["--artifact", str(out), "--port", "0", "--max_batch", "1"]))
+    with srv:
+        (dets,) = srv.engine.submit(imgs[0]).result(timeout=120)
+    np.testing.assert_array_equal(dets, got[0])
+
+
+@pytest.mark.parametrize("case", ["unquantized", "quant_skip",
+                                  "format_torch"])
+def test_int8_refusals(art, int8_pth, tmp_path, case):
+    """The JAX exporter's ``--int8`` refusals: a checkpoint with no
+    quantized convs, a ``--quant_skip`` other than the checkpoint's, and
+    ``--format torch``."""
+    ckpt = art["pth"] if case == "unquantized" else int8_pth[0]
+    argv = ["--int8", "--checkpoint", str(ckpt), "--out",
+            str(tmp_path / "q.rdtpu"), "--device", "cpu"]
+    if case == "quant_skip":  # the default skip against HIRES_SKIP
+        with pytest.raises(ValueError, match="different --quant_skip"):
+            export_serving.main(argv)
+        return
+    match = {"unquantized": "holds no quantized convs",
+             "format_torch": "--format serving only"}[case]
+    with pytest.raises(SystemExit, match=match):
+        export_serving.main(argv + ["--format", "torch"] * (
+            case == "format_torch"))

@@ -7,7 +7,10 @@ wait), the eval slice (the eval post-process and the Evaluator, kernel path
 against plain path; no host sync inside a batch; the host NMS library), and
 the serving artifact (exported on the card: the live serving function
 exactly, one CUDA graph per bucket exactly as eager, K1 counted per replay,
-no host sync inside).
+no host sync inside), and the int8 convolution kernel (bitwise equal to
+its plain version at every geometry of the 320 set, strided inputs) and
+the int8 serving artifact (equal to the live int8 function, its launches
+counted per replay, no host sync).
 
 They skip without a CUDA card. On the card::
 
@@ -37,14 +40,16 @@ from refinedet_tpu_torch.eval import Evaluator
 from refinedet_tpu_torch.eval import evaluator as evaluator_module
 from refinedet_tpu_torch.eval.evaluator import eval_postprocess
 from refinedet_tpu_torch.models import build_refinedet, build_refinedet_bn
-from refinedet_tpu_torch.ops import nms_cuda, nms_native
+from refinedet_tpu_torch.ops import int8_conv, nms_cuda, nms_native
 from refinedet_tpu_torch.ops.nms import nms_sweep_reference
 from refinedet_tpu_torch.losses import refinedet_multibox_loss
+from refinedet_tpu_torch.quant import DEFAULT_QUANT_SKIP, quantize_variables
 from refinedet_tpu_torch.serve.export import (ServingModel,
                                               fused_nms_settings,
                                               fused_postprocess,
                                               load_serving, make_serving_fn,
                                               save_serving)
+from refinedet_tpu_torch.tools import int8_bench
 from refinedet_tpu_torch.tools.eval_check import (SyntheticSSDD,
                                                   SyntheticVOC)
 from refinedet_tpu_torch.tools.train_check import (SyntheticDetection,
@@ -569,6 +574,111 @@ def test_fused_artifact_never_syncs(card_artifact):
     x = torch.from_numpy(_noise(3, 4)).cuda()
     with torch.inference_mode():
         serving.module(x)  # warm-up: cuDNN plans of this shape
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            dets = serving.module(x)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert dets.shape == (4, 20, 200, 5)
+
+
+# -- the int8 convolution and the int8 serving path ----------------------------
+
+def _int8_cases():
+    """Every distinct quantized conv of RefineDet320 (quant_skip=()):
+    its real input shape and geometry."""
+    return int8_bench.distinct(int8_bench.conv_shapes(320, 21, ()))
+
+
+@pytest.mark.parametrize("batch", [1, 5])
+def test_int8_conv_matches_plain(cuda, batch):
+    """The kernel bitwise equal to the plain version at every geometry of
+    the 320 set: the int32 sums, and the bf16 and f32 outputs."""
+    for i, case in enumerate(_int8_cases()):
+        xq, w, ws, bias = int8_bench.random_case(case, batch, cuda, i)
+        k, s, p, d = case["geom"]
+        before = int8_conv.int8_conv.launches
+        for dtype in (torch.int32, torch.bfloat16, torch.float32):
+            got = int8_conv.int8_conv(xq, w, ws, bias, s, p, d, dtype)
+            want = int8_conv.int8_conv_reference(xq, w, ws, bias, s, p, d,
+                                                 dtype)
+            assert got.dtype == dtype and got.is_contiguous()
+            assert torch.equal(got, want), (case["names"], dtype)
+        assert int8_conv.int8_conv.launches == before + 3
+
+
+def test_int8_conv_strided_inputs_and_refusals(cuda):
+    """The op takes strided views (an exported program may hand it some);
+    the wrapper refuses shapes the kernel does not take."""
+    case = _int8_cases()[2]
+    xq, w, ws, bias = int8_bench.random_case(case, 2, cuda, 7)
+    nchw = xq.permute(0, 3, 1, 2).contiguous()
+    strided = nchw.permute(0, 2, 3, 1)  # NHWC view of NCHW memory
+    assert not strided.is_contiguous()
+    wide = torch.stack([w, w], dim=-1)[..., 0]  # strided, same values
+    assert not wide.is_contiguous() and torch.equal(wide, w)
+    want = int8_conv.int8_conv_reference(xq, w, ws, bias, 1, 1, 1,
+                                         torch.bfloat16)
+    got = torch.ops.refinedet_tpu_torch.int8_conv(
+        strided, wide, ws, bias, 1, 1, 1, torch.bfloat16)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        int8_conv.int8_conv(xq[..., :48].contiguous(),
+                            w[..., :48].contiguous(), ws, bias, 1, 1, 1)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        int8_conv.int8_conv(xq, w[:96].contiguous(), ws[:96], bias[:96])
+
+
+@pytest.fixture(scope="module")
+def int8_artifact(tmp_path_factory):
+    """RefineDet320 (21 classes) quantized from made-up statistics, bf16,
+    exported on the card with fused NMS, written and loaded back."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    model = build_refinedet("test", 320, 21, dtype=torch.bfloat16,
+                            device="cuda", seed=0)
+    model_q = build_refinedet("test", 320, 21, dtype=torch.bfloat16,
+                              device="cuda", quant=True,
+                              quant_skip=DEFAULT_QUANT_SKIP)
+    model_q.net.load_state_dict(quantize_variables(
+        model_q, model.net.state_dict(),
+        int8_bench.made_up_stats(model_q.net, 0)))
+    path = tmp_path_factory.mktemp("int8") / "refinedet320_int8.rdtpu"
+    meta = save_serving(model_q, None, str(path), fused_nms={})
+    assert meta["int8"] and meta["quant_skip"] == list(DEFAULT_QUANT_SKIP)
+    return model_q, make_serving_fn(model_q, None, fused_nms={}), \
+        load_serving(str(path))
+
+
+def test_int8_artifact_graphs_equal_live_and_count(int8_artifact):
+    """The int8 artifact equals the live int8 function exactly; each
+    bucket's graph holds 26 int8 launches and one K1 launch, which every
+    replay adds to the counts."""
+    _, live, loaded = int8_artifact
+    imgs = _noise(21, 2)
+    np.testing.assert_array_equal(loaded(imgs), live(imgs))
+    serving = ServingModel(loaded.meta, loaded.program)
+    serving.warm_up((1, 2))
+    for b in (1, 2):
+        graph = serving.graphs[b]
+        assert (graph.int8_launches, graph.launches) == (26, 1)
+        imgs = _noise(30 + b, b)
+        before = (int8_conv.int8_conv.launches, nms_cuda.nms_sweep.launches)
+        got = serving(imgs)
+        assert (int8_conv.int8_conv.launches - before[0],
+                nms_cuda.nms_sweep.launches - before[1]) == (26, 1)
+        np.testing.assert_array_equal(got, live(imgs))
+
+
+def test_int8_forward_never_syncs(int8_artifact):
+    """The int8 serving function (quantize, kernel, epilogue, K1) makes no
+    blocking copy and no synchronization."""
+    _, _, serving = int8_artifact
+    x = torch.from_numpy(_noise(4, 4)).cuda()
+    with torch.inference_mode():
+        serving.module(x)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:

@@ -190,6 +190,10 @@ def test_port_imports_no_jax():
     files = sorted((REPO / "refinedet_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 15
+    pkg = REPO / "refinedet_tpu_torch"
+    assert {pkg / "quant" / "ptq.py", pkg / "quant" / "gptq.py",
+            pkg / "quant" / "__init__.py", pkg / "ops" / "int8_conv.py",
+            pkg / "ops" / "cuda_build.py"} <= set(files)
     for path in files:
         for name in _imports(path):
             root = name.split(".")[0]
