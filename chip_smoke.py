@@ -111,11 +111,16 @@ non-zero exit and no result line:
      end (host clock), on the device (CUDA events, card preloaded) and the
      share outside the device; export, save, load and capture seconds and
      the file's MB;
- 11. int8 PTQ (``quant/``, the int8 convolution kernel
-     ``csrc/int8_conv.cu``), RefineDet320 (VOC, 21 classes), bf16, the
-     default ``quant_skip``: (a) the kernel against its plain version at
-     every distinct conv of the 320 set (``quant_skip=()``) at batches 1
-     and 8, the int32 sums and the bf16 outputs bitwise equal; (b) PTQ on
+ 11. int8 PTQ (``quant/``) on the int8 path's two kernels
+     (``csrc/int8_conv.cu``: the convolution on wgmma fed by TMA, the
+     activation quantize in one pass), RefineDet320 (VOC, 21 classes),
+     bf16, the default ``quant_skip``: (a) the convolution against its
+     plain version at every distinct conv of the 320 set
+     (``quant_skip=()``) at batches 1, 8 and 32 and of the 512 set at 8,
+     the int32 sums and the bf16 outputs bitwise equal (split-K plans
+     included); the quantize against its plain version at every served
+     input shape at batches 1, 8 and 32, bf16 and f32, edge values
+     included, bitwise; (b) PTQ on
      the card: seeded weights calibrated on in-memory images
      (``tools/eval_check.py``), the card's f32 statistics against the
      CPU's (1e-4 of each conv's largest; ``kernel_q`` exact for every conv whose statistics
@@ -123,16 +128,21 @@ non-zero exit and no result line:
      GPTQ rounding against the CPU's on the same Hessian; (c) the int8
      artifact with fused NMS, exported on the card, equal to the live int8
      function exactly at batches 1, 8 and 32, then served through
-     ``BatchingEngine`` and HTTP with one CUDA graph per bucket: 26 int8
-     launches and one K1 launch per device batch; (d) beside the card's
-     name and power limit: per distinct conv at batch 32 the kernel (graph
-     replay), its plain version, its bound, the ``torch._int_mm`` library
-     call and cuDNN's bf16 conv, summed per forward; the int8 forward and
-     end to end at batch 32 against the bf16 network's in the same call;
-     calibration and GPTQ seconds; (e) int8 eval on the in-memory SSDD set
-     (RefineDet512, 2 classes, +1 areas): K1 once per batch, 26 int8
-     launches per batch, the kernel post-process equal to the plain one on
-     every batch.
+     ``BatchingEngine`` and HTTP with one CUDA graph per bucket, each
+     holding 26 convolution, 26 quantize and one K1 launch: the counts
+     rise by that much per device batch; (d) beside the card's name and
+     power limit: per distinct conv at batch 32 the kernel (graph
+     replay) with its tile plan, its plain version, its bound, the
+     ``torch._int_mm`` library call and cuDNN's bf16 conv, summed per
+     forward; per served input shape the quantize (graph replay), its
+     plain version and its bound, summed per forward; each wrapper's host
+     us a call; the strided inputs the quantize copied (none expected);
+     the ``IGMMA`` and ``UTMALDG`` instructions in the library's SASS; the
+     int8 forward and end to end at batch 32 against the bf16 network's in
+     the same call; calibration and GPTQ seconds; (e) int8 eval on the
+     in-memory SSDD set (RefineDet512, 2 classes, +1 areas): K1 once per
+     batch, 26 convolution and 26 quantize launches per batch, the kernel
+     post-process equal to the plain one on every batch.
 
 The line before the last is the card's name and power limit from
 nvidia-smi; the last is {"ok": true, "device": {...}}. TF32 is off for
@@ -193,7 +203,8 @@ BN_STAGING = 1792         # 9c: 2 x 896
 ARTIFACT_BATCHES = (1, 8, 32)  # 10a: artifact against the live function
 ARTIFACT_REPS = 10        # 10d: timed calls of each path
 ARTIFACT_SPIN_MS = 50     # 10d: card spin before each device-timed call
-INT8_CHECK_BATCHES = (1, 8)   # 11a: kernel against plain
+INT8_CHECK_BATCHES = (1, 8, 32)  # 11a: kernels against plain, 320 set
+INT8_CHECK_512_BATCH = 8      # 11a: the 512 set (SSDD eval) at this batch
 INT8_CALIB_IMAGES = 8         # 11b: calibration images (batches of 4)
 INT8_GPTQ_NAMES = ("extra_conv1", "tcb2_0_conv")  # 11b
 INT8_TIME_BATCH = 32          # 11d
@@ -238,6 +249,53 @@ def host_issue_ms(fn, reps: int) -> float:
     ms = (time.perf_counter() - t0) * 1e3 / reps
     torch.cuda.synchronize()
     return ms
+
+
+def ptxas_summary(log: str) -> dict:
+    """Each kernel's registers, static shared memory and spill bytes
+    from an ``nvcc -Xptxas -v`` log, by a short name (dynamic shared
+    memory, the int8 conv's stages, is set at launch and not in it)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(int8_conv_kernel|int8_conv_reduce|"
+                          r"int8_quantize_kernel|nms_sweep_kernel)(\w*)",
+                          m.group(1))
+            args = re.findall(r"L[ib](\d+)E", k.group(2)) if k else []
+            if k and k.group(1) == "int8_quantize_kernel":
+                args.insert(0, "f32" if k.group(2).startswith("If")
+                            else "bf16")
+            name = (k.group(1) if k else m.group(1)) + (
+                f"<{','.join(args)}>" if args else "")
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name]["spills"] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem_static"] = int(smem.group(1)) if smem else 0
+    return out
+
+
+def sass_counts(path) -> dict:
+    """``IGMMA`` (integer wgmma) and ``UTMALDG`` (TMA load) instructions
+    in ``cuobjdump -sass`` of a built library, or why there are none."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return {"cuobjdump": "absent"}
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, timeout=300).stdout
+    lines = sass.splitlines()
+    return {op: sum(op in line for line in lines)
+            for op in ("IGMMA", "UTMALDG", "IMMA")}
 
 
 def host_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -1095,7 +1153,8 @@ def serve_requests(engine, server, requests, label: str) -> tuple:
     """Drive ``server``: the last HTTP_REQUESTS of ``requests`` over HTTP,
     the others from 4 client threads through ``engine``, the kernels'
     counts set to 0 just before and K1's read just after (the int8
-    kernel's stays in ``int8_conv.launches``). Checks every answer (no
+    kernels' stay in ``int8_conv.launches`` and ``int8_quantize.
+    launches``). Checks every answer (no
     error, fused dets of the expected shape, finite) and returns (answers
     by request, the engine's stats, K1's launches)."""
     from refinedet_tpu_torch.ops import int8_conv, nms_cuda
@@ -1116,6 +1175,7 @@ def serve_requests(engine, server, requests, label: str) -> tuple:
     wire = "u1" if requests.dtype == np.uint8 else "<f4"
     nms_cuda.nms_sweep.launches = 0
     int8_conv.int8_conv.launches = 0
+    int8_conv.int8_quantize.launches = 0
     server.start()
     try:
         threads = [threading.Thread(target=client, args=(t,))
@@ -1336,10 +1396,9 @@ def artifact_phase(dev: torch.device, smi: str, rng) -> tuple:
 
 
 def int8_phase(dev: torch.device, smi: str, rng) -> tuple:
-    """Phase 11: int8 PTQ on the card; returns its numbers, the int8 and
-    K1 launches of its main paths (11c's serving run; K1 also 11e's eval
-    run), the kernel's worst error against its plain version, and its
-    line of the kernels table."""
+    """Phase 11: int8 PTQ on the card; returns its numbers, the int8 conv
+    and K1 launches of its main paths (11c's serving run; K1 also 11e's
+    eval run), and the int8 kernels' lines of the kernels table."""
     import torch.nn.functional as F
 
     from refinedet_tpu_torch.config import MEANS, VOC_MEANS, DetectConfig
@@ -1371,33 +1430,65 @@ def int8_phase(dev: torch.device, smi: str, rng) -> tuple:
     bf16 = torch.bfloat16
     op = int8_conv.int8_conv
     plain = int8_conv.int8_conv_reference
+    quant = int8_conv.int8_quantize
+    plain_quant = int8_conv.int8_quantize_reference
     # Random weights leave some channels dead on a few calibration images;
     # quantize_variables warns for each such conv (JAX's floor applies).
     warnings.filterwarnings("ignore", "PTQ: .*calibration-dead")
 
-    # -- 11a. the kernel against its plain version ---------------------------
+    # -- 11a. the kernels against their plain versions -----------------------
     t0 = time.perf_counter()
     every = int8_bench.distinct(int8_bench.conv_shapes(SIZE, NUM_CLASSES))
-    worst, compared = 0.0, 0
-    for b in INT8_CHECK_BATCHES:
-        for i, case in enumerate(every):
+    every512 = int8_bench.distinct(int8_bench.conv_shapes(SSDD_SIZE, 2))
+    worst, compared, split_cases = 0.0, 0, 0
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sets = [(SIZE, b, every) for b in INT8_CHECK_BATCHES]
+    sets.append((SSDD_SIZE, INT8_CHECK_512_BATCH, every512))
+    for size, b, cases in sets:
+        for i, case in enumerate(cases):
             xq, w, ws, bias = int8_bench.random_case(case, b, dev,
-                                                     100 * b + i)
+                                                     size + 100 * b + i)
             k, s, p, d = case["geom"]
+            split_cases += int8_conv.plan(
+                b, *case["hwc"], case["o"], k, s, p, d, sms).splits > 1
             for dtype in (torch.int32, bf16):
                 got = op(xq, w, ws, bias, s, p, d, dtype)
                 want = plain(xq, w, ws, bias, s, p, d, dtype)
                 err = float((got.double() - want.double()).abs().max())
                 worst = max(worst, err)
                 compared += 1
-                check(torch.equal(got, want), f"11a: int8 conv "
+                check(torch.equal(got, want), f"11a: int8 conv {size} "
                       f"{case['names']} batch {b} {dtype}: max abs err "
                       f"{err} against the plain version")
     del xq, w, ws, bias, got, want
     log("int8", f"11a: {len(every)} distinct convs of the 320 set "
-        f"(quant_skip=()) at batches {list(INT8_CHECK_BATCHES)}: int32 sums "
-        f"and bf16 outputs bitwise equal to the plain version ({compared} "
-        f"comparisons, {time.perf_counter() - t0:.1f} s)")
+        f"(quant_skip=()) at batches {list(INT8_CHECK_BATCHES)} and "
+        f"{len(every512)} of the 512 set at batch {INT8_CHECK_512_BATCH}: "
+        f"int32 sums and bf16 outputs bitwise equal to the plain version "
+        f"({compared} comparisons, {split_cases} of {compared // 2} shapes "
+        f"with K split, {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    served_convs = int8_bench.conv_shapes(SIZE, NUM_CLASSES,
+                                          DEFAULT_QUANT_SKIP)
+    inputs = list(dict.fromkeys(c["hwc"] for c in served_convs))
+    worst_q, compared_q = 0.0, 0
+    for b in INT8_CHECK_BATCHES:
+        for i, hwc in enumerate(inputs):
+            for dtype in (bf16, torch.float32):
+                x, scale = int8_bench.quantize_case(hwc, b, dtype, dev,
+                                                    10 * b + i)
+                got, want = quant(x, scale), plain_quant(x, scale)
+                err = float((got.int() - want.int()).abs().max())
+                worst_q = max(worst_q, err)
+                compared_q += 1
+                check(torch.equal(got, want), f"11a: quantize {hwc} batch "
+                      f"{b} {dtype}: max abs err {err} against the plain "
+                      "version")
+    del x, scale, got, want
+    log("int8", f"11a: the quantize at the {len(inputs)} served input "
+        f"shapes at batches {list(INT8_CHECK_BATCHES)}, bf16 and f32, edge "
+        f"values included: bitwise equal to the plain version "
+        f"({compared_q} comparisons, {time.perf_counter() - t0:.1f} s)")
 
     # -- 11b. PTQ on the card --------------------------------------------------
     data = SyntheticVOC(INT8_CALIB_IMAGES, SIZE, seed=500)
@@ -1509,30 +1600,36 @@ def int8_phase(dev: torch.device, smi: str, rng) -> tuple:
     serving.warm_up(engine.buckets)
     for b in engine.buckets:
         g = serving.graphs[b]
-        check((g.int8_launches, g.launches) == (INT8_CONVS, 1),
-              f"11c: bucket {b}'s graph holds {g.int8_launches} int8 and "
-              f"{g.launches} K1 launches")
+        check((g.int8_launches, g.quant_launches, g.launches)
+              == (INT8_CONVS, INT8_CONVS, 1),
+              f"11c: bucket {b}'s graph holds {g.int8_launches} int8 conv, "
+              f"{g.quant_launches} quantize and {g.launches} K1 launches")
     server = Server(engine, serving.meta)
     requests = noise_images(rng, ENGINE_REQUESTS + HTTP_REQUESTS)
+    copies = quant.copies
     _, stats, k1_launches = serve_requests(engine, server, requests, "int8")
-    int8_launches = op.launches
+    int8_launches, quant_launches = op.launches, quant.launches
     check(k1_launches == stats["batches"] > 0
-          and int8_launches == INT8_CONVS * stats["batches"],
-          f"11c: {int8_launches} int8 and {k1_launches} K1 launches for "
-          f"{stats['batches']} device batches")
+          and int8_launches == quant_launches
+          == INT8_CONVS * stats["batches"],
+          f"11c: {int8_launches} int8 conv, {quant_launches} quantize and "
+          f"{k1_launches} K1 launches for {stats['batches']} device batches")
     log("int8", f"11c: {len(requests)} requests ({HTTP_REQUESTS} over HTTP) "
         f"through the int8 artifact's graphs (buckets "
-        f"{list(engine.buckets)}) in {stats['batches']} device batches: "
-        f"int8 launches {int8_launches}, K1 launches {k1_launches}")
+        f"{list(engine.buckets)}, each holding {INT8_CONVS} int8 conv, "
+        f"{INT8_CONVS} quantize and 1 K1 launch) in {stats['batches']} "
+        f"device batches: int8 conv launches {int8_launches}, quantize "
+        f"launches {quant_launches}, K1 launches {k1_launches}")
     out["served"] = {"requests": len(requests), "batches": stats["batches"],
                      "int8_launches": int8_launches,
+                     "quantize_launches": quant_launches,
                      "k1_launches": k1_launches}
 
     # -- 11d. timings ------------------------------------------------------------
     log("int8", smi)
     b = INT8_TIME_BATCH
     served = {(c["hwc"], c["o"], c["geom"]): c for c in int8_bench.distinct(
-        int8_bench.conv_shapes(SIZE, NUM_CLASSES, DEFAULT_QUANT_SKIP))}
+        served_convs)}
     rows, sums = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                       "library_ms": 0.0, "cudnn_bf16_ms": 0.0}
     with torch.inference_mode():
@@ -1542,8 +1639,12 @@ def int8_phase(dev: torch.device, smi: str, rng) -> tuple:
             x16 = xq.to(bf16).permute(0, 3, 1, 2)
             w16 = w.to(bf16).permute(0, 3, 1, 2)
             b16 = bias.to(bf16)
+            pl = int8_conv.plan(b, *case["hwc"], case["o"], k, s, p, d, sms)
             row = {"names": case["names"], "hwc": case["hwc"],
                    "o": case["o"], "geom": case["geom"],
+                   "plan": {"box": pl.box, "bn": pl.bn, "bk": pl.bk,
+                            "splits": pl.splits, "grid": pl.grid,
+                            "stages": pl.stages},
                    "ms": graph_ms(lambda: op(xq, w, ws, bias, s, p, d, bf16),
                                   n=20),
                    "plain_ms": cuda_ms(lambda: plain(
@@ -1566,17 +1667,65 @@ def int8_phase(dev: torch.device, smi: str, rng) -> tuple:
                 f"plain {row['plain_ms']:.3f}, bound {row['bound_ms']:.4f} "
                 f"({row['bound_by']}), _int_mm {row['library_ms']:.4f}, "
                 f"cuDNN bf16 {row['cudnn_bf16_ms']:.4f} ms; "
-                f"{row['per_forward']} a forward")
+                f"{row['per_forward']} a forward; plan box {pl.box} BN "
+                f"{pl.bn} BK {pl.bk} splits {pl.splits} grid {pl.grid}")
             del xq, w, ws, bias, x16, w16, b16
         log("time", f"11d int8 convs of one forward at batch {b} "
             f"({INT8_CONVS} launches): kernel {sums['ms']:.3f} ms, plain "
             f"{sums['plain_ms']:.3f} ms, bound {sums['bound_ms']:.4f} ms, "
             f"_int_mm {sums['library_ms']:.3f} ms, cuDNN bf16 "
             f"{sums['cudnn_bf16_ms']:.3f} ms")
+        q_rows, q_sums = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+        for i, hwc in enumerate(inputs):
+            x, scale = int8_bench.quantize_case(hwc, b, bf16, dev, 8000 + i)
+            row = {"hwc": hwc, "per_forward": sum(
+                       c["hwc"] == hwc for c in served_convs),
+                   "ms": graph_ms(lambda: quant(x, scale), n=20),
+                   "plain_ms": cuda_ms(lambda: plain_quant(x, scale), 5,
+                                       warmup=2),
+                   "bound_ms": int8_bench.quantize_bound_ms(hwc, b, bf16)}
+            for kk in q_sums:
+                q_sums[kk] += row["per_forward"] * row[kk]
+            q_rows.append(row)
+            log("time", f"11d quantize {hwc} bf16 batch {b}: kernel "
+                f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, bound "
+                f"{row['bound_ms']:.4f} ms (bytes); {row['per_forward']} a "
+                "forward")
+        log("time", f"11d quantize launches of one forward at batch {b} "
+            f"({INT8_CONVS}): kernel {q_sums['ms']:.3f} ms, plain "
+            f"{q_sums['plain_ms']:.3f} ms, bound {q_sums['bound_ms']:.4f} "
+            "ms; library_ms: n/a, no single PyTorch call computes it "
+            "(quantize_per_channel divides by the scale instead of "
+            "multiplying by its IEEE reciprocal, and clamps at -128)")
+        # the wrappers' host cost a call: checks, plan (cached),
+        # allocation, tensor maps, ctypes launch
+        host = {}
+        for label, case in (("conv, K split", every[-7]),
+                            ("conv, whole K", every[6])):
+            xq, w, ws, bias = int8_bench.random_case(case, b, dev, 1)
+            k, s, p, d = case["geom"]
+            host[label] = 1e3 * host_issue_ms(
+                lambda: op(xq, w, ws, bias, s, p, d, bf16), 200)
+            log("time", f"11d int8 conv wrapper ({label}, "
+                f"{'/'.join(case['names'])}): {host[label]:.1f} us host "
+                "time a call")
+        x, scale = int8_bench.quantize_case(inputs[0], b, bf16, dev, 1)
+        host["quantize"] = 1e3 * host_issue_ms(lambda: quant(x, scale),
+                                               200)
+        log("time", f"11d quantize wrapper: {host['quantize']:.1f} us host "
+            "time a call")
+        del xq, w, ws, bias, x, scale
         imgs = noise_images(rng, b)
         x = torch.from_numpy(imgs).to(dev)
         fwd_q = cuda_ms(lambda: model_q.raw_forward(x), 10)
         fwd_bf16 = cuda_ms(lambda: model.raw_forward(x), 10)
+    check(quant.copies == copies, f"11c-d: the quantize copied "
+          f"{quant.copies - copies} strided inputs on the 320 path")
+    log("int8", f"11c-d: strided inputs the quantize copied on the 320 "
+        f"path: {quant.copies - copies}")
+    out["quantize"] = q_rows
+    out["quantize_per_forward"] = q_sums
+    out["host_us"] = host
     live_bf16 = make_serving_fn(model, None, fused_nms={})
     e2e_q = host_ms(lambda: live(imgs), 10)
     e2e_bf16 = host_ms(lambda: live_bf16(imgs), 10)
@@ -1588,6 +1737,15 @@ def int8_phase(dev: torch.device, smi: str, rng) -> tuple:
         f"{e2e_bf16:.2f} ms (host clock)")
     out["convs"] = rows
     out["per_forward"] = sums
+    lib8 = int8_conv.load_kernel()
+    out["sass"] = sass_counts(lib8.path)
+    log("int8", f"11d SASS of {lib8.path.name}: {out['sass']}")
+    out["ptxas"] = ptxas_summary(lib8.build_log)
+    for name, row in out["ptxas"].items():
+        log("int8", f"11d ptxas {name}: {row}")
+    if not out["ptxas"]:
+        log("int8", "11d ptxas: the library was built by an earlier "
+            "process (no -Xptxas -v log in this one)")
     out.update({"forward_int8_ms": fwd_q, "forward_bf16_ms": fwd_bf16,
                 "serve_int8_ms": e2e_q, "serve_int8_graph_ms": e2e_graph,
                 "serve_bf16_ms": e2e_bf16})
@@ -1618,15 +1776,17 @@ def int8_phase(dev: torch.device, smi: str, rng) -> tuple:
     evaluator_module.eval_postprocess = recording
     nms_cuda.nms_sweep.launches = 0
     op.launches = 0
+    quant.launches = 0
     try:
         all_boxes = evaluator.run(state512)
     finally:
         evaluator_module.eval_postprocess = eval_postprocess
     eval_k1, eval_int8 = nms_cuda.nms_sweep.launches, op.launches
+    eval_quant = quant.launches
     check(eval_k1 == len(recorded) == n_batches
-          and eval_int8 == INT8_CONVS * n_batches,
-          f"11e: {eval_k1} K1 and {eval_int8} int8 launches for "
-          f"{n_batches} batches")
+          and eval_int8 == eval_quant == INT8_CONVS * n_batches,
+          f"11e: {eval_k1} K1, {eval_int8} int8 conv and {eval_quant} "
+          f"quantize launches for {n_batches} batches")
     mismatched = 0
     with torch.inference_mode():
         for heads, scales, dets in recorded:
@@ -1639,23 +1799,32 @@ def int8_phase(dev: torch.device, smi: str, rng) -> tuple:
     check(coco.shape == (12,) and np.isfinite(coco).all(),
           "11e: COCO stats not 12 finite values")
     log("int8", f"11e: int8 RefineDet512 (2 classes) eval on "
-        f"{len(data)} SSDD images: K1 {eval_k1} and int8 {eval_int8} "
-        f"launches for {n_batches} batches, kernel post-process equal to "
+        f"{len(data)} SSDD images: K1 {eval_k1}, int8 conv {eval_int8} and "
+        f"quantize {eval_quant} launches for {n_batches} batches, kernel "
+        f"post-process equal to "
         f"the plain one on every batch; COCO stats "
         f"{np.round(coco, 4).tolist()}")
     out["eval"] = {"batches": n_batches, "k1_launches": eval_k1,
                    "int8_launches": eval_int8,
+                   "quantize_launches": eval_quant,
                    "coco_stats": [float(v) for v in coco]}
     del model512, q512, evaluator, recorded
     torch.cuda.empty_cache()
-    entry = {"name": "int8_conv", "route": "cuda",
-             "source": "refinedet_tpu_torch/csrc/int8_conv.cu",
-             "replaces": "refinedet_tpu/models/layers.py:83",
-             "launches": int8_launches, "max_abs_err": worst,
-             "ms": sums["ms"], "plain_ms": sums["plain_ms"],
-             "bound_ms": sums["bound_ms"], "bound_by": "operations",
-             "library_ms": sums["library_ms"]}
-    return out, int8_launches, k1_launches + eval_k1, entry
+    entries = [{"name": "int8_conv", "route": "cuda",
+                "source": "refinedet_tpu_torch/csrc/int8_conv.cu",
+                "replaces": "refinedet_tpu/models/layers.py:83",
+                "launches": int8_launches, "max_abs_err": worst,
+                "ms": sums["ms"], "plain_ms": sums["plain_ms"],
+                "bound_ms": sums["bound_ms"], "bound_by": "operations",
+                "library_ms": sums["library_ms"]},
+               {"name": "int8_quantize", "route": "cuda",
+                "source": "refinedet_tpu_torch/csrc/int8_conv.cu",
+                "replaces": "refinedet_tpu/models/layers.py:79",
+                "launches": quant_launches, "max_abs_err": worst_q,
+                "ms": q_sums["ms"], "plain_ms": q_sums["plain_ms"],
+                "bound_ms": q_sums["bound_ms"], "bound_by": "bytes",
+                "library_ms": None}]
+    return out, int8_launches, k1_launches + eval_k1, entries
 
 
 def time_sweep(cand, valid, label, thresh, plus_one=False):
@@ -1958,7 +2127,7 @@ def main() -> int:
 
     # -- 11. int8 PTQ ----------------------------------------------------------
     t11 = time.perf_counter()
-    int8, _, int8_k1, int8_entry = int8_phase(dev, smi, rng)
+    int8, _, int8_k1, int8_entries = int8_phase(dev, smi, rng)
     launches += int8_k1
     log("time", f"phase 11 took {time.perf_counter() - t11:.1f} s")
     log("time", f"total {time.perf_counter() - t_start:.1f} s")
@@ -1976,7 +2145,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }, int8_entry]}), flush=True)
+    }, *int8_entries]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind,

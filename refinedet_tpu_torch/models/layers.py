@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from refinedet_tpu_torch.ops.int8_conv import int8_conv
+from refinedet_tpu_torch.ops.int8_conv import int8_conv, int8_quantize
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -79,21 +79,22 @@ class QuantConv2d(nn.Module):
 
     Symmetric quantization with per-input-channel activation scales folded
     into the weights (``quant/ptq.py``): ``xq[c] = clamp(round(x[c] *
-    (1 / in_scale[c])), -127, 127)``, then ``int8_conv(xq, kernel_q) *
-    w_scale + bias``. Buffers, not parameters: ``kernel_q`` int8 ``[O, kh,
-    kw, C]`` (the kernel's layout; flax's is HWIO), ``w_scale`` ``[O]``,
-    ``in_scale`` ``[C]`` and ``bias`` ``[O]`` float32; ``quant.ptq.
-    quantize_variables`` fills them (here they start as flax's init:
-    zeros, ones, ones, zeros).
+    (1 / in_scale[c])), -127, 127)`` (the op ``int8_quantize``), then
+    ``int8_conv(xq, kernel_q) * w_scale + bias`` (the op ``int8_conv``),
+    then the NCHW view of the result. Buffers, not parameters:
+    ``kernel_q`` int8 ``[O, kh, kw, C]`` (the kernel's layout; flax's is
+    HWIO), ``w_scale`` ``[O]``, ``in_scale`` ``[C]`` and ``bias`` ``[O]``
+    float32; ``quant.ptq.quantize_variables`` fills them (here they start
+    as flax's init: zeros, ones, ones, zeros).
 
-    Rounding as JAX's: ``1 / in_scale`` by IEEE division in float32 (a
-    tensor divided by a tensor, which the card also divides; a tensor
-    divided by a Python float it would turn into a reciprocal multiply),
-    a float32 multiply, round half to even, then the clamp. The input is
-    NCHW with channels-last strides, so its NHWC view is contiguous. The
-    output dtype is the JAX module's ``dtype``: bfloat16 under bf16
-    autocast (the port's bf16 mode, which does not cast a custom op's
-    output), float32 otherwise; it is given to the op explicitly.
+    Rounding as JAX's: ``1 / in_scale`` by IEEE division in float32, a
+    float32 multiply, round half to even, then the clamp
+    (``ops/int8_conv.py:int8_quantize_reference``). The input is NCHW
+    with channels-last strides, so its NHWC view is contiguous (the
+    quantize kernel copies one that is not, and counts it). The output
+    dtype is the JAX module's ``dtype``: bfloat16 under bf16 autocast (the
+    port's bf16 mode, which does not cast a custom op's output), float32
+    otherwise; it is given to the op explicitly.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -126,10 +127,10 @@ class QuantConv2d(nn.Module):
                 f"{self.padding}, dilation={self.dilation}")
 
     def quantize_input(self, x: torch.Tensor) -> torch.Tensor:
-        """``x [B, C, H, W]`` -> int8 of the same layout."""
-        inv = torch.div(torch.ones_like(self.in_scale), self.in_scale)
-        xq = torch.round(x.float() * inv.view(1, -1, 1, 1))
-        return torch.clamp(xq, -127.0, 127.0).to(torch.int8)
+        """``x [B, C, H, W]`` -> int8 of the same shape (the NCHW view of
+        the quantize op's NHWC result)."""
+        return int8_quantize(x.permute(0, 2, 3, 1),
+                             self.in_scale).permute(0, 3, 1, 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dev = x.device.type

@@ -1,4 +1,5 @@
-# The module registers the op refinedet_tpu_torch::int8_conv.
+# The module registers the ops refinedet_tpu_torch::int8_conv and
+# refinedet_tpu_torch::int8_quantize.
 from refinedet_tpu_torch.ops import int8_conv  # noqa: F401
 from refinedet_tpu_torch.ops.dispatch import (batched_nms_auto,
                                               class_parallel_nms)

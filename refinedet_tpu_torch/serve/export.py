@@ -14,8 +14,10 @@ with ``torch.export``, weights included; ``save_serving`` writes it to one
 file and ``load_serving`` reads it back as a ``ServingModel`` without any
 model class: the serving host needs torch, numpy and
 ``refinedet_tpu_torch.ops`` (which registers K1 as the op
-``refinedet_tpu_torch::nms_sweep`` and the int8 convolution as
-``refinedet_tpu_torch::int8_conv``, one node of the exported graph each).
+``refinedet_tpu_torch::nms_sweep``, the int8 convolution as
+``refinedet_tpu_torch::int8_conv`` and the activation quantize before it
+as ``refinedet_tpu_torch::int8_quantize``, one node of the exported graph
+each).
 One artifact serves any batch size when exported with a symbolic batch.
 The int8 twin (``build_refinedet(..., quant=True)`` filled by
 ``quant.quantize_model``) exports the same way; its metadata says
@@ -338,8 +340,9 @@ class BucketGraph:
     Capture runs the module twice on a side stream first (the kernels'
     builds, cuDNN's plans, the allocator's warm-up); a capture that fails
     raises. The kernels' wrappers count a launch recorded into the graph
-    in ``nms_sweep.captured`` (K1) and ``int8_conv.captured``; every
-    replay adds the graph's launches to their ``launches``.
+    in ``nms_sweep.captured`` (K1), ``int8_conv.captured`` and
+    ``int8_quantize.captured``; every replay adds the graph's launches to
+    their ``launches``.
     """
 
     def __init__(self, module: nn.Module, static_in: torch.Tensor,
@@ -354,10 +357,13 @@ class BucketGraph:
         self.graph = torch.cuda.CUDAGraph()
         before = nms_cuda.nms_sweep.captured
         before_int8 = int8_conv.int8_conv.captured
+        before_quant = int8_conv.int8_quantize.captured
         with torch.cuda.graph(self.graph, pool=pool):
             self.out = module(static_in)
         self.launches = nms_cuda.nms_sweep.captured - before
         self.int8_launches = int8_conv.int8_conv.captured - before_int8
+        self.quant_launches = int8_conv.int8_quantize.captured - \
+            before_quant
 
     def replay(self, images: torch.Tensor):
         """Copy ``images`` (host) into the static input, replay, and
@@ -366,6 +372,7 @@ class BucketGraph:
         self.graph.replay()
         nms_cuda.nms_sweep.launches += self.launches
         int8_conv.int8_conv.launches += self.int8_launches
+        int8_conv.int8_quantize.launches += self.quant_launches
         return self.out
 
 
@@ -435,7 +442,7 @@ class ServingModel:
 def load_serving(path: str) -> ServingModel:
     """Load an artifact written by ``save_serving``. Needs torch and
     ``refinedet_tpu_torch.ops`` (imported by this module: it registers
-    the K1 and int8-conv ops the program calls), and no model class, checkpoint or
+    the K1 and int8 ops the program calls), and no model class, checkpoint or
     config. Raises for a file of the JAX package, and for a CUDA artifact
     on a host without a card; never moves an artifact to another
     device."""

@@ -1,5 +1,6 @@
-"""Shapes, inputs and yardsticks for the int8 convolution kernel
-(``ops/int8_conv.py``, ``csrc/int8_conv.cu``) on the card.
+"""Shapes, inputs and yardsticks for the int8 path's kernels, the
+convolution and the activation quantize (``ops/int8_conv.py``,
+``csrc/int8_conv.cu``), on the card.
 
 Used by ``chip_smoke.py`` (phase 11) and ``tests/test_torch_port_gpu.py``:
 
@@ -8,7 +9,11 @@ Used by ``chip_smoke.py`` (phase 11) and ``tests/test_torch_port_gpu.py``:
   * ``distinct``: those shapes once each, with how many convs of a
     forward share them;
   * ``random_case``: seeded int8 inputs, weights and epilogue at a shape;
-  * ``bound_ms``: the least time the card could take for one such conv;
+  * ``quantize_case``: a seeded activation and ``in_scale`` at an input
+    shape, with the quantize's edge values written into it;
+  * ``work`` and ``bound_ms``: the least time the card could take for
+    one such conv, ``quantize_work`` and ``quantize_bound_ms`` for one
+    quantize;
   * ``int_mm_conv``: the library call the kernel is held against, im2col
     by a strided view of the padded int8 NHWC tensor and one copy, then
     ``torch._int_mm`` (cuBLASLt) and the same epilogue. It is timed
@@ -96,6 +101,49 @@ def work(shape: dict, batch: int) -> tuple:
     nbytes = batch * h * w * c + o * k * k * c + 8 * o + \
         2 * batch * ho * wo * o
     return 2 * macs, nbytes
+
+
+# x * (1 / in_scale) on a tie, on +-127.5, past the clamp, a signed zero,
+# an infinity or a subnormal (in_scale 1.0 on the channels they sit in)
+QUANT_EDGES = (0.5, 1.5, 2.5, -0.5, -2.5, 126.5, -126.5, 127.5, -127.5,
+               128.0, -128.0, 200.0, -1e30, 3e38, float("inf"),
+               float("-inf"), 0.0, -0.0, 1e-40, -1e-40, 5.877e-39)
+
+
+def quantize_case(hwc: tuple, batch: int, dtype: torch.dtype, device,
+                  seed: int):
+    """(x [B, H, W, C] in ``dtype``, in_scale [C] float32) from a seed:
+    activations around the clamp, scales in [0.05, 4) but 1.0 on the
+    first 4 channels (``QUANT_EDGES`` down channels 0 and 1, negated down
+    2) and 0.5 on the next 4 (half-integer values there, each a tie)."""
+    gen = torch.Generator().manual_seed(seed)
+    c = hwc[2]
+    x = torch.randn((batch, *hwc), generator=gen) * 80.0
+    in_scale = torch.rand(c, generator=gen) * 3.95 + 0.05
+    in_scale[:4] = 1.0
+    in_scale[4:8] = 0.5
+    flat = x.view(-1, c)
+    n = min(len(QUANT_EDGES), flat.shape[0])
+    edges = torch.tensor(QUANT_EDGES[:n])
+    flat[:n, 0] = edges
+    flat[:n, 1] = edges
+    flat[:n, 2] = -edges
+    m = min(64, flat.shape[0])
+    flat[:m, 4:8] = (torch.arange(m * 4).view(m, 4) - 2 * m) / 2 + 0.25
+    return x.to(dtype).to(device), in_scale.to(device)
+
+
+def quantize_work(hwc: tuple, batch: int, dtype: torch.dtype) -> int:
+    """Bytes one quantize must move: the activation read once, the int8
+    result written once (``in_scale`` is C floats)."""
+    n = batch * hwc[0] * hwc[1] * hwc[2]
+    return n * (torch.finfo(dtype).bits // 8 + 1) + 4 * hwc[2]
+
+
+def quantize_bound_ms(hwc: tuple, batch: int, dtype: torch.dtype) -> float:
+    """The least ms on the card for one quantize: bound by bytes (one
+    multiply, one convert and a clamp an element)."""
+    return quantize_work(hwc, batch, dtype) / H100_BYTES_PER_S * 1e3
 
 
 def bound_ms(shape: dict, batch: int) -> tuple:

@@ -357,7 +357,8 @@ def int8_pth(art):
 
 def test_int8_artifact_round_trip(art, int8_pth, tmp_path):
     """``--int8`` through the CLI: every quantized conv one
-    ``refinedet_tpu_torch::int8_conv`` node, ``"int8": true`` with its
+    ``refinedet_tpu_torch::int8_conv`` node after one
+    ``refinedet_tpu_torch::int8_quantize`` node, ``"int8": true`` with its
     skip in the metadata, the loaded artifact equal to the live int8
     function, and the server's ``--artifact`` answering with it."""
     path, model_q = int8_pth
@@ -369,11 +370,13 @@ def test_int8_artifact_round_trip(art, int8_pth, tmp_path):
     serving = load_serving(str(out))
     assert serving.meta["int8"] is True
     assert serving.meta["quant_skip"] == list(HIRES_SKIP)
-    nodes = sum("int8_conv" in str(node.target)
-                for mod in serving.program.graph_module.modules()
-                if isinstance(mod, torch.fx.GraphModule)
-                for node in mod.graph.nodes)
+    targets = [str(node.target)
+               for mod in serving.program.graph_module.modules()
+               if isinstance(mod, torch.fx.GraphModule)
+               for node in mod.graph.nodes]
+    nodes = sum("int8_conv" in t for t in targets)
     assert nodes == 28 - len(HIRES_SKIP) == 16
+    assert sum("int8_quantize" in t for t in targets) == nodes
     imgs = _images(40)
     got = serving(imgs)
     want = make_serving_fn(model_q, None, fused_nms={})(imgs)

@@ -7,10 +7,12 @@ wait), the eval slice (the eval post-process and the Evaluator, kernel path
 against plain path; no host sync inside a batch; the host NMS library), and
 the serving artifact (exported on the card: the live serving function
 exactly, one CUDA graph per bucket exactly as eager, K1 counted per replay,
-no host sync inside), and the int8 convolution kernel (bitwise equal to
-its plain version at every geometry of the 320 set, strided inputs) and
-the int8 serving artifact (equal to the live int8 function, its launches
-counted per replay, no host sync).
+no host sync inside), the int8 path's kernels (the convolution bitwise
+equal to its plain version at every geometry of the 320 set, split-K
+plans included, and at odd shapes; the quantize bitwise equal to its
+plain version at every served input shape; strided inputs) and the int8
+serving artifact (equal to the live int8 function, its launches counted
+per replay, no host sync).
 
 They skip without a CUDA card. On the card::
 
@@ -591,13 +593,17 @@ def _int8_cases():
     return int8_bench.distinct(int8_bench.conv_shapes(320, 21, ()))
 
 
-@pytest.mark.parametrize("batch", [1, 5])
+@pytest.mark.parametrize("batch", [1, 5, 32])
 def test_int8_conv_matches_plain(cuda, batch):
     """The kernel bitwise equal to the plain version at every geometry of
-    the 320 set: the int32 sums, and the bf16 and f32 outputs."""
+    the 320 set: the int32 sums, and the bf16 and f32 outputs. At batch
+    32 the 5x5 and 10x10 levels split K."""
+    splits = 0
     for i, case in enumerate(_int8_cases()):
         xq, w, ws, bias = int8_bench.random_case(case, batch, cuda, i)
         k, s, p, d = case["geom"]
+        splits += int8_conv.plan(batch, *case["hwc"], case["o"], k, s, p,
+                                 d).splits > 1
         before = int8_conv.int8_conv.launches
         for dtype in (torch.int32, torch.bfloat16, torch.float32):
             got = int8_conv.int8_conv(xq, w, ws, bias, s, p, d, dtype)
@@ -606,6 +612,55 @@ def test_int8_conv_matches_plain(cuda, batch):
             assert got.dtype == dtype and got.is_contiguous()
             assert torch.equal(got, want), (case["names"], dtype)
         assert int8_conv.int8_conv.launches == before + 3
+    assert splits > 0
+
+
+@pytest.mark.parametrize("shape,o,geom", [
+    ((2, 11, 9, 64), 128, (3, 2, 1, 1)),  # odd input, stride 2
+    ((3, 9, 13, 32), 64, (3, 1, 1, 1)),   # 32-byte K steps
+    ((3, 7, 7, 96), 192, (3, 1, 1, 1)),   # O a multiple of 64 only
+    ((1, 5, 5, 128), 64, (1, 1, 0, 1)),
+    ((2, 10, 10, 512), 1024, (3, 1, 3, 3)),
+])
+def test_int8_conv_odd_shapes(cuda, shape, o, geom):
+    case = {"hwc": shape[1:], "o": o, "geom": geom}
+    xq, w, ws, bias = int8_bench.random_case(case, shape[0], cuda, 3)
+    k, s, p, d = geom
+    for dtype in (torch.int32, torch.bfloat16):
+        got = int8_conv.int8_conv(xq, w, ws, bias, s, p, d, dtype)
+        assert torch.equal(got, int8_conv.int8_conv_reference(
+            xq, w, ws, bias, s, p, d, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_quantize_matches_plain(cuda, dtype):
+    """The quantize kernel bitwise equal to its plain version at every
+    input shape of the served convs (batches 1 and 32), edge values
+    included, and at a C that takes its one-element path."""
+    shapes = int8_bench.conv_shapes(320, 21, DEFAULT_QUANT_SKIP)
+    inputs = list(dict.fromkeys(c["hwc"] for c in shapes)) + [(3, 5, 37)]
+    for batch in (1, 32):
+        for i, hwc in enumerate(inputs):
+            x, scale = int8_bench.quantize_case(hwc, batch, dtype, cuda, i)
+            before = int8_conv.int8_quantize.launches
+            got = int8_conv.int8_quantize(x, scale)
+            assert int8_conv.int8_quantize.launches == before + 1
+            assert got.dtype == torch.int8 and got.shape == x.shape
+            assert torch.equal(got, int8_conv.int8_quantize_reference(
+                x, scale)), (hwc, batch)
+
+
+def test_int8_quantize_strided_input_is_copied(cuda):
+    x, scale = int8_bench.quantize_case((6, 5, 64), 2, torch.bfloat16,
+                                        cuda, 0)
+    strided = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    assert not strided.is_contiguous()
+    before = int8_conv.int8_quantize.copies
+    got = torch.ops.refinedet_tpu_torch.int8_quantize(strided, scale)
+    assert int8_conv.int8_quantize.copies == before + 1
+    assert torch.equal(got, int8_conv.int8_quantize_reference(x, scale))
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        int8_conv.int8_quantize(x.half(), scale)
 
 
 def test_int8_conv_strided_inputs_and_refusals(cuda):
@@ -628,6 +683,8 @@ def test_int8_conv_strided_inputs_and_refusals(cuda):
                             w[..., :48].contiguous(), ws, bias, 1, 1, 1)
     with pytest.raises(ValueError, match="multiple of 64"):
         int8_conv.int8_conv(xq, w[:96].contiguous(), ws[:96], bias[:96])
+    with pytest.raises(ValueError, match="stride 1 or 2"):
+        int8_conv.int8_conv(xq, w, ws, bias, 3, 1, 1)
 
 
 @pytest.fixture(scope="module")
@@ -654,8 +711,8 @@ def int8_artifact(tmp_path_factory):
 
 def test_int8_artifact_graphs_equal_live_and_count(int8_artifact):
     """The int8 artifact equals the live int8 function exactly; each
-    bucket's graph holds 26 int8 launches and one K1 launch, which every
-    replay adds to the counts."""
+    bucket's graph holds 26 int8 conv launches, 26 quantize launches and
+    one K1 launch, which every replay adds to the counts."""
     _, live, loaded = int8_artifact
     imgs = _noise(21, 2)
     np.testing.assert_array_equal(loaded(imgs), live(imgs))
@@ -663,12 +720,16 @@ def test_int8_artifact_graphs_equal_live_and_count(int8_artifact):
     serving.warm_up((1, 2))
     for b in (1, 2):
         graph = serving.graphs[b]
-        assert (graph.int8_launches, graph.launches) == (26, 1)
+        assert (graph.int8_launches, graph.quant_launches,
+                graph.launches) == (26, 26, 1)
         imgs = _noise(30 + b, b)
-        before = (int8_conv.int8_conv.launches, nms_cuda.nms_sweep.launches)
+        before = (int8_conv.int8_conv.launches,
+                  int8_conv.int8_quantize.launches,
+                  nms_cuda.nms_sweep.launches)
         got = serving(imgs)
         assert (int8_conv.int8_conv.launches - before[0],
-                nms_cuda.nms_sweep.launches - before[1]) == (26, 1)
+                int8_conv.int8_quantize.launches - before[1],
+                nms_cuda.nms_sweep.launches - before[2]) == (26, 26, 1)
         np.testing.assert_array_equal(got, live(imgs))
 
 
