@@ -142,7 +142,28 @@ non-zero exit and no result line:
      the same call; calibration and GPTQ seconds; (e) int8 eval on the
      in-memory SSDD set (RefineDet512, 2 classes, +1 areas): K1 once per
      batch, 26 convolution and 26 quantize launches per batch, the kernel
-     post-process equal to the plain one on every batch.
+     post-process equal to the plain one on every batch;
+ 12. data parallelism (``parallel/``, the data-parallel train step and
+     Evaluator): (a) under a one-rank NCCL process group, one step of
+     RefineDet320 in bf16 at batch 32 and of RefineDet512-BN in float64
+     at batch 2 with the grouped path (``DistributedDataParallel``, the
+     all-reduced N of the loss, the synced BN) against the ungrouped
+     step from the same weights (6a's and 8a's limits); (b) two gloo
+     ranks spawned on the one card (NCCL refuses two ranks on one
+     device) and a reference process without a group
+     (``tools/ddp_check.py``): 3 f32 steps of RefineDet320 at global
+     batch 4 (the ranks bitwise equal; parameters within the JAX
+     package's multi-process limits, updates 2e-2), one float64 step of
+     RefineDet512-BN (running statistics and updates 1e-9, the float32
+     L2Norm scales 1e-6), and the 2-rank Evaluator on 7a's VOC set at
+     batch 8 a rank against one process at batch 8 (``all_boxes``
+     exactly equal; K1's launches in the three processes counted in the
+     kernels line); (c) beside the card's name and power limit: the bf16
+     step at batch 32 with DDP at world 1 against the ungrouped step
+     (CUDA events, in turns) and the host's time to issue each, the NCCL
+     all-reduce of the 34M f32
+     gradients alone, and the 2-rank gloo step's host ms, a correctness
+     run through the host and not a scaling figure.
 
 The line before the last is the card's name and power limit from
 nvidia-smi; the last is {"ok": true, "device": {...}}. TF32 is off for
@@ -203,6 +224,9 @@ BN_STAGING = 1792         # 9c: 2 x 896
 ARTIFACT_BATCHES = (1, 8, 32)  # 10a: artifact against the live function
 ARTIFACT_REPS = 10        # 10d: timed calls of each path
 ARTIFACT_SPIN_MS = 50     # 10d: card spin before each device-timed call
+DDP_GLOBAL_BATCH = 4      # 12b: 2 gloo ranks x 2 rows on the one card
+DDP_STEPS = 3             # 12b: f32 steps of RefineDet320
+DDP_LR, DDP_CLIP = 1e-5, 5.0  # 12b: the JAX package's multi-process test's
 INT8_CHECK_BATCHES = (1, 8, 32)  # 11a: kernels against plain, 320 set
 INT8_CHECK_512_BATCH = 8      # 11a: the 512 set (SSDD eval) at this batch
 INT8_CALIB_IMAGES = 8         # 11b: calibration images (batches of 4)
@@ -1827,6 +1851,234 @@ def int8_phase(dev: torch.device, smi: str, rng) -> tuple:
     return out, int8_launches, k1_launches + eval_k1, entries
 
 
+def ddp_phase(dev: torch.device, smi: str) -> tuple:
+    """Phase 12: data parallelism on the card; returns its numbers and
+    K1's launches in 12b's ranks and their reference process."""
+    import torch.distributed as dist
+    from refinedet_tpu_torch.config import TrainConfig
+    from refinedet_tpu_torch.data.collate import detection_collate
+    from refinedet_tpu_torch.models import RefineDet, build_refinedet
+    from refinedet_tpu_torch.parallel import distributed
+    from refinedet_tpu_torch.tools import ddp_check
+    from refinedet_tpu_torch.tools.train_check import (SyntheticDetection,
+                                                       biases_before_bn,
+                                                       one_step,
+                                                       update_rel_errors)
+    from refinedet_tpu_torch.train import (create_train_state,
+                                           make_optimizer, make_train_step)
+
+    out = {}
+    bf16 = torch.bfloat16
+
+    def build(size, classes, use_bn, dtype):
+        model = build_refinedet("train", size, classes, use_bn=use_bn,
+                                dtype=bf16 if dtype == bf16 else
+                                torch.float32, device=dev, seed=0)
+        if dtype == torch.float64:
+            model.net.double()
+        return model
+
+    def meta_net(classes, size, use_bn):  # the layout, no weights
+        with torch.device("meta"):
+            return RefineDet(classes, size, use_bn)
+
+    def batch_of(n, size, classes, seed):
+        data = SyntheticDetection(n, size, classes, seed=seed)
+        return detection_collate([data[i] for i in range(n)],
+                                 TRAIN_MAX_BOXES)
+
+    # -- 12a. NCCL at world size 1: the grouped step against today's -------
+    check(distributed.maybe_initialize(
+        f"tcp://localhost:{distributed.free_port()}", 1, 0),
+        "12a: no process group")
+    group = distributed.default_group()
+    check(dist.get_backend(group) == "nccl"
+          and distributed.local_device("cuda") == torch.device("cuda", 0),
+          f"12a: backend {dist.get_backend(group)}, local device "
+          f"{distributed.local_device('cuda')}")
+    try:
+        cfg = TrainConfig(max_boxes=TRAIN_MAX_BOXES,
+                          grad_clip_norm=TRAIN_CLIP)
+        for label, size, classes, use_bn, dtype, n in (
+                (f"RefineDet{SIZE} bf16", SIZE, NUM_CLASSES, False, bf16,
+                 TRAIN_BATCH),
+                (f"RefineDet{BN_STEP_SIZE}-BN f64", BN_STEP_SIZE, 2, True,
+                 torch.float64, 2)):
+            batch = batch_of(n, size, classes, 500)
+            (want, want_up), (got, got_up) = [
+                one_step(build(size, classes, use_bn, dtype), batch, cfg,
+                         lr=cfg.lr, group=g) for g in (None, group)]
+            loss_err = max(abs(got[k] - want[k]) / abs(want[k])
+                           for k in LOSS_KEYS)
+            net = meta_net(classes, size, use_bn)
+            params = ({k for k, _ in net.named_parameters()}
+                      - biases_before_bn(net))
+            rel = update_rel_errors(got_up, {k: want_up[k] for k in params})
+            worst = max(rel, key=rel.get)
+            stats = [k for k in want_up if ".running_" in k]
+            stats_err = max([float((got_up[k] - want_up[k]).abs().max()
+                                   / want_up[k].abs().max())
+                             for k in stats] or [0.0])
+            log("ddp", f"12a: {label}, batch {n}, NCCL world 1, grouped "
+                f"(DDP, all-reduced N{', synced BN' if use_bn else ''}) "
+                f"against ungrouped: worst loss rel err {loss_err:.3g} "
+                f"(limit 2e-4), worst update rel L2 err {rel[worst]:.3g} "
+                f"({worst}; limit 2e-2), {len(stats)} running statistics' "
+                f"updates worst {stats_err:.3g} of their largest (limit "
+                f"1e-4); positives ODM {got['num_pos_odm']:g}/"
+                f"{want['num_pos_odm']:g}")
+            check(loss_err <= 2e-4 and rel[worst] <= 2e-2
+                  and stats_err <= 1e-4
+                  and got["num_pos_odm"] == want["num_pos_odm"],
+                  f"12a: {label}: the grouped step differs")
+            check(len(stats) == (34 if use_bn else 0),
+                  f"12a: {len(stats)} running statistics")
+            out[f"world1_{'bn' if use_bn else 'plain'}"] = {
+                "loss_rel_err": loss_err, "update_rel_err": rel[worst],
+                "running_stats_err": stats_err}
+
+        # -- 12c. timings at world size 1 ------------------------------------
+        fixed = [torch.from_numpy(a).to(dev)
+                 for a in batch_of(TRAIN_BATCH, SIZE, NUM_CLASSES, 501)]
+        steps = {}
+        for name, g in (("plain", None), ("ddp", group)):
+            model = build(SIZE, NUM_CLASSES, False, bf16)
+            opt = make_optimizer(model.net.parameters(), lambda t: 1e-3,
+                                 grad_clip_norm=TRAIN_CLIP)
+            step = make_train_step(model, opt, cfg, g)
+            state = create_train_state(model, opt)
+            for _ in range(3):
+                state, _ = step(state, *fixed)
+            steps[name] = (step, state, model)
+        times = {"plain": [], "ddp": []}
+        issue = {"plain": [], "ddp": []}
+        for name in ("plain", "ddp", "ddp", "plain"):
+            step, state, _ = steps[name]
+            times[name].append(cuda_ms(lambda: step(state, *fixed),
+                                       TRAIN_STEPS, 0))
+            issue[name].append(host_issue_ms(lambda: step(state, *fixed),
+                                             TRAIN_STEPS))
+        grads = torch.zeros(sum(p.numel() for p in
+                                steps["ddp"][2].net.parameters()),
+                            device=dev)
+        reduce_ms = cuda_ms(lambda: dist.all_reduce(grads, group=group), 20)
+        log("ddp", f"12c: {smi}: bf16 step, batch {TRAIN_BATCH}, CUDA "
+            f"events over {TRAIN_STEPS} steps, in turns: ungrouped "
+            f"{times['plain'][0]:.3f} / {times['plain'][1]:.3f} ms, DDP "
+            f"at world 1 {times['ddp'][0]:.3f} / {times['ddp'][1]:.3f} ms "
+            f"(overhead {np.mean(times['ddp']) - np.mean(times['plain']):.3f}"
+            f" ms); the host's time to issue a step (no sync): ungrouped "
+            f"{issue['plain'][0]:.3f} / {issue['plain'][1]:.3f} ms, DDP "
+            f"{issue['ddp'][0]:.3f} / {issue['ddp'][1]:.3f} ms; NCCL "
+            f"all-reduce of {grads.numel()} f32 gradients alone at world 1: "
+            f"{reduce_ms:.4f} ms")
+        out["step_ms"] = times
+        out["issue_ms"] = issue
+        out["allreduce_ms"] = reduce_ms
+        out["grad_elems"] = grads.numel()
+        del steps, grads, fixed
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # -- 12b. two gloo ranks on the one card, against one process ----------
+    plain = dict(kind="steps", name="plain", size=SIZE, classes=NUM_CLASSES,
+                 batch=DDP_GLOBAL_BATCH, steps=DDP_STEPS, lr=DDP_LR,
+                 clip=DDP_CLIP, save=(DDP_STEPS,))
+    bn = dict(kind="steps", name="bn", size=BN_STEP_SIZE, classes=2, bn=True,
+              dtype="float64", batch=DDP_GLOBAL_BATCH, steps=1, lr=DDP_LR,
+              data_seed=11, save=(1,))
+    evals = dict(kind="eval", name="eval", size=SIZE, images=VOC_EVAL_IMAGES,
+                 data_seed=300, rank_batch=EVAL_BATCH, nms_top_k=300,
+                 dtype="bfloat16", seed=1)
+    jobs = [plain, bn, evals]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as folder:
+        results = ddp_check.start(2, jobs, [jobs], folder, backend="gloo",
+                                  device="cuda:0", threads=2).results(900)
+    log("ddp", f"12b: 2 gloo ranks and 1 reference process on "
+        f"{torch.cuda.get_device_name(0)}, spawned, ran in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ranks, ref = (results["rank0"], results["rank1"]), results["reference0"]
+    for name in ("plain", "bn"):
+        check(ranks[0][name]["digest"] == ranks[1][name]["digest"]
+              and ranks[0][name]["metrics"] == ranks[1][name]["metrics"],
+              f"12b: the ranks' {name} states differ")
+    loss_err = max(abs(g[k] - w[k]) / abs(w[k]) for name in ("plain", "bn")
+                   for g, w in zip(ranks[0][name]["metrics"],
+                                   ref[name]["metrics"]) for k in LOSS_KEYS)
+    got, want = ranks[0]["plain"]["saved"][DDP_STEPS], \
+        ref["plain"]["saved"][DDP_STEPS]
+    sums, heads = ddp_check.summary_errors(got["params"], want["params"])
+    rel = update_rel_errors(got["momentum"], want["momentum"])
+    worst = max(rel, key=rel.get)
+    log("ddp", f"12b: RefineDet{SIZE} f32 (TF32 off), {DDP_STEPS} steps "
+        f"at global batch {DDP_GLOBAL_BATCH}, lr {DDP_LR}, clip {DDP_CLIP}: "
+        f"ranks bitwise equal; against one process: parameters' sums "
+        f"{sums:.3g} (limit 1e-6) and first elements {heads:.3g} (limit "
+        f"1e-5), worst update (momentum) rel L2 err {rel[worst]:.3g} "
+        f"({worst}; limit 2e-2)")
+    check(sums <= 1e-6 and heads <= 1e-5 and rel[worst] <= 2e-2,
+          "12b: the plain steps differ from one process's")
+    got, want = ranks[0]["bn"]["saved"][1], ref["bn"]["saved"][1]
+    stats = [k for k in want["buffers"] if ".running_" in k]
+    stats_err = max(float((got["buffers"][k] - want["buffers"][k]).abs()
+                          .max() / want["buffers"][k].abs().max())
+                    for k in stats)
+    net = meta_net(2, BN_STEP_SIZE, True)
+    l2 = {k for k in want["momentum"] if "L2Norm" in k}
+    skip = biases_before_bn(net) | l2
+    rel = update_rel_errors(got["momentum"], {
+        k: v for k, v in want["momentum"].items() if k not in skip})
+    rel_l2 = update_rel_errors(got["momentum"],
+                               {k: want["momentum"][k] for k in l2})
+    worst = max(rel, key=rel.get)
+    log("ddp", f"12b: RefineDet{BN_STEP_SIZE}-BN f64, one step at global "
+        f"batch {DDP_GLOBAL_BATCH}: ranks bitwise equal; against one "
+        f"process: {len(stats)} running statistics worst "
+        f"{stats_err:.3g} of their largest (limit 1e-9), worst update rel "
+        f"L2 err {rel[worst]:.3g} ({worst}; limit 1e-9), the L2Norm scales "
+        f"(float32) {max(rel_l2.values()):.3g} (limit 1e-6); worst loss "
+        f"rel err of both runs {loss_err:.3g} (float32 heads; limit 1e-5)")
+    check(len(stats) == 34 and stats_err <= 1e-9 and rel[worst] <= 1e-9
+          and max(rel_l2.values()) <= 1e-6 and loss_err <= 1e-5,
+          "12b: the BN step differs from one process's")
+    got, want = ranks[0]["eval"]["all_boxes"], ref["eval"]["all_boxes"]
+    check(ranks[1]["eval"]["all_boxes"] is None, "12b: rank 1 returned "
+          "detections")
+    diff, rows = 0.0, 0
+    for cls_got, cls_want in zip(got, want):
+        for a, b in zip(cls_got, cls_want):
+            check(a.shape == b.shape, f"12b: detection counts differ: "
+                  f"{a.shape} against {b.shape}")
+            if a.size:
+                diff = max(diff, float(np.abs(a - b).max()))
+            rows += len(b)
+    launches = sum(r["eval"]["launches"] for r in (*ranks, ref))
+    n_batches = VOC_EVAL_IMAGES // EVAL_BATCH
+    log("ddp", f"12b: Evaluator, RefineDet{SIZE} bf16, "
+        f"{VOC_EVAL_IMAGES} images of 7a's VOC set, 2 ranks x batch "
+        f"{EVAL_BATCH} against one process at batch {EVAL_BATCH}: "
+        f"{rows} detections, max |difference| {diff:g} (limit 0); K1 "
+        f"launches {ranks[0]['eval']['launches']} + "
+        f"{ranks[1]['eval']['launches']} in the ranks, "
+        f"{ref['eval']['launches']} in the reference")
+    check(diff == 0.0 and len(got) == len(want) == NUM_CLASSES
+          and rows > 0, "12b: the 2-rank Evaluator differs from one process")
+    check(launches == 2 * n_batches, f"12b: K1 launched {launches} times "
+          f"for {2 * n_batches} batches")
+    log("ddp", f"12c: {smi}: the 2-rank gloo step through the host, a "
+        f"correctness run and not a scaling figure: RefineDet{SIZE} f32 at "
+        f"2 rows a rank {[round(v, 2) for v in ranks[0]['plain']['ms']]} "
+        f"ms (host clock, synchronised), one process at "
+        f"{DDP_GLOBAL_BATCH} rows {[round(v, 2) for v in ref['plain']['ms']]}"
+        f" ms")
+    out["gloo_step_ms"] = ranks[0]["plain"]["ms"]
+    out["reference_step_ms"] = ref["plain"]["ms"]
+    out["eval_launches"] = launches
+    return out, launches
+
+
 def time_sweep(cand, valid, label, thresh, plus_one=False):
     """K1's device ms per launch and the plain version's ms on these
     candidates at IoU ``thresh``, and K1's bound."""
@@ -2130,8 +2382,15 @@ def main() -> int:
     int8, _, int8_k1, int8_entries = int8_phase(dev, smi, rng)
     launches += int8_k1
     log("time", f"phase 11 took {time.perf_counter() - t11:.1f} s")
-    log("time", f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"int8": int8}), flush=True)
+
+    # -- 12. data parallelism ---------------------------------------------
+    t12 = time.perf_counter()
+    ddp, ddp_k1 = ddp_phase(dev, smi)
+    launches += ddp_k1
+    log("time", f"phase 12 took {time.perf_counter() - t12:.1f} s")
+    log("time", f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"ddp": ddp}), flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "nms_sweep",

@@ -65,8 +65,15 @@ class DataLoader:
                  num_workers: int = 8, shuffle: bool = True, seed: int = 0,
                  prefetch: int = 2, drop_last: bool = True,
                  device_put: Optional[Callable[[Batch], Batch]] = None,
+                 shard_id: int = 0, num_shards: int = 1,
                  use_processes: bool = False):
-        """``use_processes=True`` runs per-sample work in spawned worker
+        """``shard_id``/``num_shards`` give each rank a disjoint,
+        epoch-consistent slice of the global shuffle for data-parallel
+        training (every rank must use the same seed): all shards shuffle
+        ``(seed, epoch)`` alike, and shard s takes the contiguous indices
+        ``[s * per, (s + 1) * per)``, per = len(dataset) // num_shards.
+
+        ``use_processes=True`` runs per-sample work in spawned worker
         processes (the reference's DataLoader-worker model) instead of
         threads — the numpy-heavy augmentation is GIL-bound, so threads
         cannot scale it on any host. Spawn (not fork) is used because the
@@ -91,11 +98,14 @@ class DataLoader:
         self.prefetch = prefetch
         self.drop_last = drop_last
         self.device_put = device_put
+        self.shard_id = shard_id
+        self.num_shards = num_shards
         self.use_processes = use_processes
         self.epoch = 0
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        """Batches per epoch of this shard."""
+        n = len(self.dataset) // self.num_shards
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _epoch_indices(self) -> np.ndarray:
@@ -103,6 +113,9 @@ class DataLoader:
         if self.shuffle:
             np.random.default_rng(
                 np.random.SeedSequence([self.seed, self.epoch])).shuffle(idx)
+        if self.num_shards > 1:
+            per = len(idx) // self.num_shards
+            idx = idx[self.shard_id * per:(self.shard_id + 1) * per]
         return idx
 
     def __iter__(self) -> Iterator[Batch]:

@@ -11,6 +11,10 @@ compacted detections cross back to the host, once per batch.
 
 Also provides the checkpoint-sweep loop + ap_stats.json + best-epoch report
 (eval_refinedet_coco.py:328-368) and FPS/p50 timing.
+
+With a process ``group`` (the JAX Evaluator's ``mesh``) each rank
+evaluates its contiguous share of the images on its own device, and rank
+0 gathers the detections.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from refinedet_tpu_torch.config import DetectConfig
 from refinedet_tpu_torch.data.loader import DeviceStager, wait_for_copy
@@ -60,19 +65,37 @@ class Evaluator:
                  transform, batch_size: int = 8,
                  nms_top_k: Optional[int] = None,
                  max_per_image: int = 500, plus_one: bool = True,
+                 group: Optional[dist.ProcessGroup] = None,
                  log: Callable[[str], None] = print):
         """``model`` is a test-phase ``RefineDetModel``; the evaluator runs
         on its device. ``nms_top_k`` is the per-class pre-NMS candidate
         cap; it defaults to ``detect_cfg.top_k`` (1000, the reference's
         order[:top_k] cap at eval_refinedet_coco.py:222) — pass a smaller
-        value to trade recall for NMS speed."""
+        value to trade recall for NMS speed.
+
+        ``group``: evaluate data-parallel over its ranks, each on its own
+        device and its contiguous share of the images, at a batch of
+        ``batch_size // world`` (which must divide); rank 0 logs, and its
+        ``run`` and ``sweep`` return the results of all the images, the
+        other ranks' return None."""
         if model.phase != "test":
             raise ValueError("evaluation requires a 'test'-phase model")
+        self.group = group
+        self.rank, world = 0, 1
+        if group is not None:
+            self.rank, world = dist.get_rank(group), dist.get_world_size(
+                group)
+            if batch_size % world:
+                raise ValueError(f"batch_size {batch_size} must divide by "
+                                 f"the {world} ranks")
+            if self.rank != 0:
+                log = lambda line: None  # noqa: E731
+        self.world = world
         self.model = model
         self.dataset = dataset
         self.cfg = detect_cfg
         self.transform = transform
-        self.batch_size = batch_size
+        self.batch_size = batch_size // world
         self.nms_top_k = nms_top_k if nms_top_k else detect_cfg.top_k
         self.max_per_image = max_per_image
         self.plus_one = plus_one
@@ -88,10 +111,11 @@ class Evaluator:
                                 self.model.priors, scales, self.cfg,
                                 self.nms_top_k, self.plus_one)
 
-    def _staged_batches(self, n: int):
-        """Host preprocessing and the copy to the device, in a producer
-        thread one batch ahead of the device. Every batch has the same
-        shape: the last is padded with zero images of unit scale."""
+    def _staged_batches(self, n: int, start: int = 0):
+        """Host preprocessing of the images ``start`` ... ``n - 1`` and the
+        copy to the device, in a producer thread one batch ahead of the
+        device. Every batch has the same shape: the last is padded with
+        zero images of unit scale."""
         size = self.model.size
         q: "queue.Queue" = queue.Queue(maxsize=2)
         stop = threading.Event()
@@ -110,7 +134,7 @@ class Evaluator:
 
         def produce():
             try:
-                for b0 in range(0, n, self.batch_size):
+                for b0 in range(start, n, self.batch_size):
                     if stop.is_set():
                         return
                     idx = list(range(b0, min(b0 + self.batch_size, n)))
@@ -158,9 +182,10 @@ class Evaluator:
         return host.numpy()
 
     def run(self, state: Optional[Mapping[str, torch.Tensor]] = None
-            ) -> List[List[np.ndarray]]:
-        """Returns all_boxes[class][image] = [N, 5] (x1,y1,x2,y2,score).
-        ``state``, if given, is strict-loaded into the model first."""
+            ) -> Optional[List[List[np.ndarray]]]:
+        """Returns all_boxes[class][image] = [N, 5] (x1,y1,x2,y2,score)
+        (None on a rank other than 0). ``state``, if given, is
+        strict-loaded into the model first."""
         if state is not None:
             self.model.net.load_state_dict(state, strict=True)
         self.model.net.eval()
@@ -169,9 +194,13 @@ class Evaluator:
         all_boxes: List[List[np.ndarray]] = [
             [np.empty((0, 5), np.float32) for _ in range(n)]
             for _ in range(c)]
+        # this rank's contiguous share: images lo ... hi - 1
+        per, extra = divmod(n, self.world)
+        lo = self.rank * per + min(self.rank, extra)
+        hi = lo + per + (self.rank < extra)
         batch_times = []
         t_start = time.perf_counter()
-        for idx, (imgs, scales), ready in self._staged_batches(n):
+        for idx, (imgs, scales), ready in self._staged_batches(hi, lo):
             t0 = time.perf_counter()
             wait_for_copy((imgs, scales), ready)
             with torch.inference_mode():
@@ -189,18 +218,39 @@ class Evaluator:
         per_img = float(np.median(steady)) / self.batch_size
         self.log(f"\nFPS: {1.0 / per_img:.2f} "
                  f"(p50 batch latency {np.median(steady) * 1000:.1f} ms @ "
-                 f"batch {self.batch_size}; total {total:.1f}s for {n} imgs)")
+                 f"batch {self.batch_size}; total {total:.1f}s for "
+                 f"{hi - lo} imgs)")
         self.timing = {"fps": 1.0 / per_img,
                        "p50_batch_ms": float(np.median(steady) * 1000),
                        "batch_size": self.batch_size}
+        if self.group is None:
+            return all_boxes
+        return self._gather(all_boxes, range(lo, hi))
+
+    def _gather(self, all_boxes: List[List[np.ndarray]],
+                mine: range) -> Optional[List[List[np.ndarray]]]:
+        """Every rank's detections of its images into rank 0's
+        ``all_boxes`` (returned there; None elsewhere)."""
+        rows = {i: [cls[i] for cls in all_boxes] for i in mine}
+        parts = [None] * self.world if self.rank == 0 else None
+        dist.gather_object(rows, parts, dst=dist.get_global_rank(
+            self.group, 0), group=self.group)
+        if self.rank != 0:
+            return None
+        for part in parts:
+            for i, per_class in part.items():
+                for cls, r in zip(all_boxes, per_class):
+                    cls[i] = r
         return all_boxes
 
     # -- checkpoint sweep (eval_refinedet_coco.py:328-368 parity) ----------
     def sweep(self, checkpoints: Sequence, load_fn: Callable,
               epochs: Optional[Sequence[int]] = None,
-              save_folder: Optional[str] = None) -> Dict[str, list]:
+              save_folder: Optional[str] = None
+              ) -> Optional[Dict[str, list]]:
         """Evaluate a series of checkpoints (``load_fn(path)`` -> the
-        model's state_dict); returns + dumps ap_stats."""
+        model's state_dict); returns + dumps ap_stats (rank 0 computes the
+        AP; the other ranks of a group return None)."""
         ap_stats = {k: [] for k in ("ap", "ap50", "ap75", "ap_small",
                                     "ap_medium", "ap_large", "epoch")}
         for i, ckpt in enumerate(checkpoints):
@@ -208,11 +258,15 @@ class Evaluator:
             epoch = epochs[i] if epochs else i
             self.log(f"evaluating epoch: {epoch}")
             all_boxes = self.run(state)
+            if all_boxes is None:  # a rank other than 0: rank 0 scores
+                continue
             stats = self.dataset.evaluate_detections(all_boxes, save_folder)
             for key, val in zip(("ap", "ap50", "ap75", "ap_small",
                                  "ap_medium", "ap_large"), stats[:6]):
                 ap_stats[key].append(float(val))
             ap_stats["epoch"].append(epoch)
+        if self.rank != 0:
+            return None
         if save_folder:
             os.makedirs(save_folder, exist_ok=True)
             with open(osp.join(save_folder, "ap_stats.json"), "w") as f:

@@ -16,23 +16,27 @@ Semantics kept:
   * ODM mode: ``arm_loc`` is detached before matching, and positives with
     ARM objectness P(object) <= theta are dropped;
   * both losses divided by the positive count N over the whole batch;
-    N < 1 gives (0, 0).
+    N < 1 gives (0, 0). Under data parallelism (``group``), the whole
+    batch is every rank's: N is all-reduced before the division, as the
+    JAX step's global ``jnp.sum(num_pos)`` is, and each rank's losses are
+    its share of the global ones (they sum to them over the ranks).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from refinedet_tpu_torch.boxes.matcher import match_batch, \
     refine_match_batch
 
 
 class LossOutput(NamedTuple):
-    loss_l: torch.Tensor   # scalar localization loss
-    loss_c: torch.Tensor   # scalar confidence loss
-    num_pos: torch.Tensor  # scalar total positives (diagnostic)
+    loss_l: torch.Tensor   # scalar localization loss (the rank's share)
+    loss_c: torch.Tensor   # scalar confidence loss (the rank's share)
+    num_pos: torch.Tensor  # scalar total positives, every rank's
 
 
 def smooth_l1(x: torch.Tensor) -> torch.Tensor:
@@ -78,8 +82,11 @@ def _masked_smooth_l1_sum(loc_data, loc_t, pos):
     return torch.where(mask, smooth_l1(diff), 0.0).sum()
 
 
-def _finalize(loss_l, loss_c, num_pos) -> LossOutput:
+def _finalize(loss_l, loss_c, num_pos,
+              group: Optional[dist.ProcessGroup] = None) -> LossOutput:
     n = num_pos.sum().float()
+    if group is not None:
+        dist.all_reduce(n, group=group)
     safe_n = torch.clamp(n, min=1.0)
     valid = n >= 1.0
     return LossOutput(torch.where(valid, loss_l / safe_n, 0.0),
@@ -98,11 +105,14 @@ def refinedet_multibox_loss(
     overlap_thresh: float = 0.5,
     negpos_ratio: int = 3,
     theta: float = 0.01,
+    group: Optional[dist.ProcessGroup] = None,
 ) -> LossOutput:
     """RefineDet loss for one head (ARM when use_arm=False, else ODM).
 
     ``predictions`` is the train-phase model output (arm_loc [B,P,4],
     arm_conf [B,P,2], odm_loc [B,P,4], odm_conf [B,P,C], priors [P,4]).
+    With ``group`` the batch is this rank's rows of a global batch: N is
+    the global positive count.
     """
     arm_loc, arm_conf, odm_loc, odm_conf, priors = predictions
     if use_arm:
@@ -133,7 +143,7 @@ def refinedet_multibox_loss(
     loss_l = _masked_smooth_l1_sum(loc_data, loc_t, pos)
     loss_c, num_pos = _mined_confidence_loss(conf_data, conf_t, pos,
                                              negpos_ratio)
-    return _finalize(loss_l, loss_c, num_pos)
+    return _finalize(loss_l, loss_c, num_pos, group)
 
 
 def multibox_loss(

@@ -87,16 +87,19 @@ class RefineDetModel:
             self.device)
         self.detect = detector
 
-    def raw_forward(self, images: torch.Tensor, train: bool = False):
+    def raw_forward(self, images: torch.Tensor, train: bool = False,
+                    net: Optional[torch.nn.Module] = None):
         """Raw heads (arm_loc, arm_conf, odm_loc, odm_conf), float32, with
         the network in train mode iff ``train`` (BN: batch statistics, and
-        the running ones move)."""
-        if self.net.training != train:
-            self.net.train(train)
+        the running ones move). ``net`` is a wrapper of ``self.net`` to
+        call in its place (the train step's ``DistributedDataParallel``)."""
+        net = self.net if net is None else net
+        if net.training != train or self.net.training != train:
+            net.train(train)
         with torch.autocast(device_type=self.device.type,
                             dtype=torch.bfloat16,
                             enabled=self.dtype == torch.bfloat16):
-            return self.net(images)
+            return net(images)
 
     def apply(self, images: torch.Tensor):
         """Phase-dependent forward of NHWC ``images``."""

@@ -9,11 +9,15 @@ ported.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from refinedet_tpu_torch.ops.int8_conv import int8_conv, int8_quantize
+from refinedet_tpu_torch.parallel.distributed import all_reduce_sum
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -30,12 +34,19 @@ class BatchNorm2d(nn.BatchNorm2d):
     scaled down by (n-1)/n, i.e. ``(1-m)·v + m·var_biased``. (The copy
     keeps the tensor autograd saved unchanged.) n comes from the shape, so
     nothing waits for the device. ``num_batches_tracked`` counts but is
-    never read (a fixed momentum)."""
+    never read (a fixed momentum).
+
+    With a process ``group`` (``sync_batch_norm``), train mode takes the
+    statistics of the global batch, every rank's rows, as flax does under
+    the JAX package's ``data`` mesh: see ``synced_forward``."""
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=1e-5, momentum=0.1)
+        self.group: Optional[dist.ProcessGroup] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.group is not None:
+            return self.synced_forward(x)
         n = x.numel() // x.shape[1]
         if not self.training or n < 2:  # n < 2: the stock module raises
             return super().forward(x)
@@ -46,6 +57,43 @@ class BatchNorm2d(nn.BatchNorm2d):
             torch.mul(var, (n - 1) / n, out=self.running_var)
             self.num_batches_tracked.add_(1)
         return out
+
+    def synced_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over ``self.group``, with flax's ``_compute_stats``:
+        one differentiable all-reduce of the per-channel ``[Σx, Σx²]`` and
+        the element count, in float32 (float64 for a float64 input), then
+        ``var = max(E[x²] - E[x]², 0)``, ``y = (x - mean) · rsqrt(var +
+        eps) · weight + bias`` in the input's dtype, and the *biased*
+        global variance folded into ``running_var`` with momentum 0.9.
+        Every rank gets the same statistics, so the running ones stay
+        equal without a broadcast."""
+        c = x.shape[1]
+        xs = x.to(torch.promote_types(x.dtype, torch.float32))
+        stats = torch.cat([xs.sum((0, 2, 3)), (xs * xs).sum((0, 2, 3)),
+                           xs.new_full((1,), x.numel() // c)])
+        stats = all_reduce_sum(stats, self.group)
+        n = stats[2 * c]
+        mean = stats[:c] / n
+        var = torch.clamp(stats[c:2 * c] / n - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        out = (xs - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
+        with torch.no_grad():
+            m = 1.0 - self.momentum  # flax's momentum, 0.9
+            self.running_mean.mul_(m).add_(mean.detach(),
+                                           alpha=self.momentum)
+            self.running_var.mul_(m).add_(var.detach(), alpha=self.momentum)
+            self.num_batches_tracked.add_(1)
+        return out.to(x.dtype)
+
+
+def sync_batch_norm(net: nn.Module,
+                    group: Optional[dist.ProcessGroup]) -> None:
+    """Have every ``BatchNorm2d`` of ``net`` take its train-mode
+    statistics over ``group`` (None: this rank's batch alone)."""
+    for m in net.modules():
+        if isinstance(m, BatchNorm2d):
+            m.group = group
 
 
 class L2Norm(nn.Module):

@@ -169,18 +169,21 @@ def separated_batch(cpu_model, batch_size: int, max_boxes: int,
 
 
 def one_step(model, batch: Batch, train_cfg: TrainConfig,
-             lr: float) -> Tuple[Dict[str, float], Dict[str, torch.Tensor]]:
+             lr: float, group=None
+             ) -> Tuple[Dict[str, float], Dict[str, torch.Tensor]]:
     """One train step of ``model`` (its weights are updated in place) at
     constant ``lr``: the metrics as floats, and each state_dict entry's
     update (after minus before; BN running statistics included) as a CPU
     tensor. The images take the dtype of the net's parameters (a net
-    cast to float64 steps in float64)."""
+    cast to float64 steps in float64). With a process ``group`` the step
+    is the data-parallel one (``make_train_step(..., group)``) on this
+    rank's ``batch``."""
     before = {k: v.detach().cpu().clone()
               for k, v in model.net.state_dict().items()}
     opt = make_optimizer(model.net.parameters(), lambda t: lr,
                          train_cfg.momentum, train_cfg.weight_decay,
                          train_cfg.grad_clip_norm)
-    step = make_train_step(model, opt, train_cfg)
+    step = make_train_step(model, opt, train_cfg, group)
     tensors = [torch.from_numpy(a).to(model.device) for a in batch]
     tensors[0] = tensors[0].to(_param_dtype(model))
     _, metrics = step(create_train_state(model, opt), *tensors)

@@ -12,6 +12,12 @@ every 10 epochs, 5 after 200) -> ``<save_folder>/log.txt`` in the
 reference's log format -> ``<save_folder>/loss_curve.png``, and with
 ``--visdom`` ``<save_folder>/live_loss.png`` while it trains.
 
+Several GPUs: ``--ngpu N`` (default: every visible GPU; one with
+``--device cpu``) starts N ranks on this host, one process on one device
+each (gloo ranks with ``--device cpu``); under ``torchrun`` the
+launcher's environment gives the ranks instead. ``--batch_size`` is the
+global batch; rank 0 writes the log, the checkpoints and the plots.
+
 Flags of features the port does not have yet raise an error that names
 the ROADMAP.md item bringing them; none is ignored.
 """
@@ -19,6 +25,7 @@ the ROADMAP.md item bringing them; none is ignored.
 from __future__ import annotations
 
 import argparse
+import importlib
 import os
 from typing import Dict, List, Optional
 
@@ -32,6 +39,7 @@ from refinedet_tpu_torch.data.augment import StagingTransform
 from refinedet_tpu_torch.device import resolve_device
 from refinedet_tpu_torch.models import RefineDet, build_refinedet
 from refinedet_tpu_torch.models.convert import module_names
+from refinedet_tpu_torch.parallel import distributed
 from refinedet_tpu_torch.train.checkpoints import CheckpointManager
 from refinedet_tpu_torch.train.trainer import Trainer
 from refinedet_tpu_torch.utils import logger as log_util
@@ -64,7 +72,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--gamma", default=0.1, type=float)
     p.add_argument("--max_epoch", default=300, type=int)
     p.add_argument("--ngpu", default=None, type=int,
-                   help="number of GPUs (one until multi-GPU is ported)")
+                   help="data-parallel ranks started on this host, one "
+                        "per device (default: every visible GPU; 1 with "
+                        "--device cpu); under torchrun the launcher's")
     p.add_argument("--save_folder", default="weights/")
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--bn", action="store_true",
@@ -96,9 +106,7 @@ def refuse_unported(args: argparse.Namespace) -> None:
     """Raise for a flag whose feature the port does not have yet."""
     unported = [
         (args.spatial_shards > 1, "--spatial_shards > 1",
-         "item 5 (multi-GPU)"),
-        (args.ngpu is not None and args.ngpu > 1, "--ngpu > 1",
-         "item 5 (multi-GPU)"),
+         "item 5's remains (its halo design)"),
     ]
     for asked, flag, item in unported:
         if asked:
@@ -152,9 +160,36 @@ def load_basenet(net: RefineDet, path: str) -> None:
 def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
     refuse_unported(args)
-    device = resolve_device(args.device)
-    os.makedirs(args.save_folder, exist_ok=True)
-    log_util.install(os.path.join(args.save_folder, "log.txt"))
+    backend = "gloo" if torch.device(args.device).type == "cpu" else "nccl"
+    ngpu = args.ngpu
+    if ngpu is None:
+        ngpu = 1 if backend == "gloo" else torch.cuda.device_count()
+    if ngpu > 1 and not distributed.env_rendezvous():
+        # The ranks unpickle ``train`` by module: this one under its own
+        # name, since the ``__main__`` of ``python -m`` is not importable.
+        rank_train = importlib.import_module(__spec__.name).train
+        distributed.spawn(rank_train, ngpu, (args,), backend)
+        return
+    grouped = distributed.maybe_initialize(backend=backend)  # torchrun
+    try:
+        train(args)
+    finally:
+        if grouped:
+            torch.distributed.destroy_process_group()
+
+
+def train(args: argparse.Namespace) -> None:
+    """Build, train and plot in this process: the whole run, or this
+    rank's part of it under an initialised process group."""
+    if distributed.default_group() is not None:
+        device = distributed.local_device(torch.device(args.device).type)
+    else:
+        device = resolve_device(args.device)
+    lead = distributed.process_index() == 0
+    say = print if lead else (lambda *a: None)
+    if lead:
+        os.makedirs(args.save_folder, exist_ok=True)
+        log_util.install(os.path.join(args.save_folder, "log.txt"))
 
     size = int(args.input_size)
     means = C.VOC_MEANS if args.dataset == "VOC" else C.MEANS
@@ -183,7 +218,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         worker_processes=args.worker_processes, seed=args.seed,
         grad_clip_norm=args.grad_clip, ema_decay=args.ema_decay,
         on_device_augment=on_device, mean=tuple(means))
-    live = LivePlotter(args.save_folder) if args.live_plot else None
+    live = LivePlotter(args.save_folder) if args.live_plot and lead \
+        else None
     trainer = Trainer(model, dataset, cfg, save_folder=args.save_folder,
                       dataset_name=args.dataset, live_plotter=live)
 
@@ -192,23 +228,24 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.resume_epoch > 0:
         state = trainer.resume(args.resume_epoch)
         start_epoch = args.resume_epoch
-        print(f"resumed from epoch {start_epoch}")
+        say(f"resumed from epoch {start_epoch}")
     elif args.resume:
         state = trainer.load_state(
             CheckpointManager.restore_path(args.resume), args.resume)
         start_epoch = state.step // trainer.epoch_size
-        print(f"resumed from {args.resume} (epoch {start_epoch})")
+        say(f"resumed from {args.resume} (epoch {start_epoch})")
     elif args.basenet:
         load_basenet(model.net, args.basenet)
         state = trainer.init_state()  # the EMA starts from these weights
-        print(f"loaded pretrained backbone from {args.basenet}")
+        say(f"loaded pretrained backbone from {args.basenet}")
 
-    print("Loading the dataset...")
-    print(f"Training RefineDet{size} on {dataset.name} ({len(dataset)} "
-          f"images, {model.device})")
+    say("Loading the dataset...")
+    say(f"Training RefineDet{size} on {dataset.name} ({len(dataset)} "
+        f"images, {model.device}, {distributed.process_count()} rank(s))")
     trainer.train(state, start_epoch=start_epoch)
-    plot_loss(os.path.join(args.save_folder, "log.txt"),
-              os.path.join(args.save_folder, "loss_curve.png"))
+    if lead:
+        plot_loss(os.path.join(args.save_folder, "log.txt"),
+                  os.path.join(args.save_folder, "loss_curve.png"))
 
 
 if __name__ == "__main__":

@@ -1,13 +1,18 @@
-"""High-level training loop on one device.
+"""High-level training loop, on one device or data-parallel.
 
-Port of ``refinedet_tpu/train/trainer.py`` (single device; multi-GPU comes
-later): the epoch loop over the prefetching loader, warmup + step lr,
-per-iteration loss logging in the reference's log line format, epoch
-checkpoints (every 10, every 5 after epoch 200), resume, and a preemption
-checkpoint on SIGTERM/SIGINT, and an optional live loss plot. The
-loader's producer thread checks the targets and stages each batch on the
-device (uint8 staged images stay uint8); the loop only launches steps and
-logs.
+Port of ``refinedet_tpu/train/trainer.py``: the epoch loop over the
+prefetching loader, warmup + step lr, per-iteration loss logging in the
+reference's log line format, epoch checkpoints (every 10, every 5 after
+epoch 200), resume, and a preemption checkpoint on SIGTERM/SIGINT, and an
+optional live loss plot. The loader's producer thread checks the targets
+and stages each batch on the device (uint8 staged images stay uint8); the
+loop only launches steps and logs.
+
+Under an initialised process group (``parallel.distributed``), each rank
+runs this loop on its device: ``batch_size`` is the global batch, each
+rank loads its shard of the data (``batch_size // world`` rows a step),
+the state starts as rank 0's, and rank 0 alone writes checkpoints, log
+lines and the live plot.
 """
 
 from __future__ import annotations
@@ -18,9 +23,11 @@ import time
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from refinedet_tpu_torch.config import TrainConfig
 from refinedet_tpu_torch.data.loader import DataLoader, DeviceStager
+from refinedet_tpu_torch.parallel import distributed, replicate
 from refinedet_tpu_torch.train.checkpoints import CheckpointManager
 from refinedet_tpu_torch.train.schedule import make_lr_schedule
 from refinedet_tpu_torch.train.train_step import (TrainState,
@@ -30,7 +37,8 @@ from refinedet_tpu_torch.train.train_step import (TrainState,
 
 
 class Trainer:
-    """Trains ``model`` (a train-phase RefineDetModel, on its device) on
+    """Trains ``model`` (a train-phase RefineDetModel, on its device: under
+    a process group, the rank's ``distributed.local_device``) on
     ``dataset`` (``dataset[i]`` -> (image, boxes, labels))."""
 
     def __init__(self, model, dataset, train_cfg: TrainConfig,
@@ -42,14 +50,27 @@ class Trainer:
         every logged step's losses and each epoch's end."""
         if train_cfg.spatial_shards > 1:
             raise NotImplementedError(
-                "spatial sharding needs several GPUs, which are not ported "
-                "yet (ROADMAP.md §1, item 5)")
+                "spatial sharding (--spatial_shards) is not ported yet: "
+                "ROADMAP.md §1, item 5's remains (its halo design)")
+        self.group = distributed.default_group()
+        self.rank = distributed.process_index()
+        world = distributed.process_count()
+        if train_cfg.batch_size % world:
+            raise ValueError(f"batch_size {train_cfg.batch_size} not "
+                             f"divisible by {world} data-parallel ranks")
         self.model = model
         self.cfg = train_cfg
         self.dataset = dataset
-        self.log = log_fn
-        self.live_plotter = live_plotter
+        lead = self.rank == 0
+        self.log = log_fn if lead else (lambda line: None)
+        self.live_plotter = live_plotter if lead else None
         self._preempted = False
+        # The stop flag is all-reduced on the host, over gloo, so that no
+        # rank waits for its card at a step boundary.
+        self._control = None
+        if self.group is not None:
+            self._control = (self.group if dist.get_backend(self.group)
+                             == "gloo" else dist.new_group(backend="gloo"))
 
         # Target validation and the copy to the device both run in the
         # loader's producer thread: the guard sees host arrays, and the
@@ -61,9 +82,11 @@ class Trainer:
             return stager(batch)
 
         self.loader = DataLoader(
-            dataset, train_cfg.batch_size, max_boxes=train_cfg.max_boxes,
+            dataset, train_cfg.batch_size // world,
+            max_boxes=train_cfg.max_boxes,
             num_workers=train_cfg.num_workers, shuffle=True,
             seed=train_cfg.seed, device_put=stage,
+            shard_id=self.rank, num_shards=world,
             use_processes=train_cfg.worker_processes, drop_last=False)
         # The reference keeps the trailing partial batch (a ceil epoch);
         # the loader pads it with all-invalid samples, which add zero loss
@@ -77,12 +100,17 @@ class Trainer:
         self.optimizer = make_optimizer(
             model.net.parameters(), self.lr_schedule, train_cfg.momentum,
             train_cfg.weight_decay, train_cfg.grad_clip_norm)
-        self.train_step = make_train_step(model, self.optimizer, train_cfg)
+        self.train_step = make_train_step(model, self.optimizer, train_cfg,
+                                          self.group)
         self.ckpt = (CheckpointManager(
             save_folder, f"RefineDet{model.size}_{dataset_name}")
             if save_folder else None)
 
     def init_state(self) -> TrainState:
+        """Step 0 on the net's current weights (rank 0's, under a
+        group)."""
+        if self.group is not None:
+            replicate(self.model.net, self.group)
         return create_train_state(self.model, self.optimizer,
                                   ema=self.cfg.ema_decay > 0)
 
@@ -91,7 +119,8 @@ class Trainer:
         reconciling an EMA on/off mismatch with ``ema_decay``. Only the
         momentum buffers come from the checkpoint: the hyperparameters
         (momentum, weight decay) stay this run's, as the JAX Trainer
-        rebuilds its optax chain from the config and restores the trace."""
+        rebuilds its optax chain from the config and restores the trace.
+        Under a group every rank then takes rank 0's state."""
         net = self.model.net
         net.load_state_dict(payload["model"], strict=True)
         self.optimizer.load_state_dict({
@@ -113,6 +142,13 @@ class Trainer:
                 raise ValueError(f"{source}: EMA entries do not match the "
                                  "net's parameters")
             ema = {n: ema[n].to(self.model.device) for n in names}
+        if self.group is not None:
+            buffers = [self.optimizer.state[p]["momentum_buffer"]
+                       for p in net.parameters()
+                       if "momentum_buffer" in self.optimizer.state[p]]
+            replicate([*net.parameters(), *net.buffers(), *buffers,
+                       *(ema.values() if ema is not None else ())],
+                      self.group)
         return TrainState(step=int(payload["step"]), net=net,
                           optimizer=self.optimizer, ema=ema)
 
@@ -120,12 +156,19 @@ class Trainer:
         return self.load_state(self.ckpt.restore(epoch),
                                f"checkpoint epoch {epoch}")
 
+    def _save(self, state, tag) -> Optional[str]:
+        """Rank 0 writes the checkpoint; returns its path (None elsewhere
+        or without a save folder)."""
+        if self.ckpt is None or self.rank != 0:
+            return None
+        return self.ckpt.save(state, tag)
+
     def _maybe_checkpoint(self, state, epoch: int):
-        if self.ckpt is None or epoch <= 0:
+        if epoch <= 0:
             return
         # Reference cadence: every 10 epochs, every 5 after 200.
         if epoch % 10 == 0 or (epoch > 200 and epoch % 5 == 0):
-            self.ckpt.save(state, epoch)
+            self._save(state, epoch)
 
     def _validate_batch(self, batch) -> None:
         """Target sanity guard (the reference's coordinate check), raising
@@ -162,6 +205,16 @@ class Trainer:
                 signal.signal(sig, h)
 
         return restore
+
+    def _stop(self) -> bool:
+        """Whether to stop at this step boundary: a preemption signal
+        reached this rank, or under a group any rank."""
+        if self._control is None:
+            return self._preempted
+        flag = torch.tensor([int(self._preempted)])
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self._control)
+        self._preempted = bool(flag.item())
+        return self._preempted
 
     def train(self, state: Optional[TrainState] = None,
               start_epoch: int = 0,
@@ -210,7 +263,7 @@ class Trainer:
             for epoch in range(start_epoch + 1, end_epoch + 1):
                 self._maybe_checkpoint(state, epoch - 1)
                 for sb in self.loader:  # checked and staged
-                    if self._preempted:
+                    if self._stop():
                         break
                     sb = sb.wait()
                     state, metrics = self.train_step(
@@ -218,7 +271,8 @@ class Trainer:
                     iteration += 1
                     if pending is not None:
                         flush(pending)
-                    pending = (iteration, epoch, metrics)
+                    if self.rank == 0:  # the other ranks log nothing
+                        pending = (iteration, epoch, metrics)
                 if self.live_plotter is not None:
                     if pending is not None:
                         flush(pending)
@@ -227,8 +281,8 @@ class Trainer:
                 if self._preempted:
                     if pending is not None:
                         flush(pending)
-                    if self.ckpt is not None:
-                        path = self.ckpt.save(state, f"preempt_e{epoch}")
+                    path = self._save(state, f"preempt_e{epoch}")
+                    if path is not None:
                         self.log(f"preemption signal: checkpointed to "
                                  f"{path}")
                     return state
@@ -239,6 +293,5 @@ class Trainer:
         # The last epoch's numbered checkpoint (the check at the top of
         # each epoch covers only epoch - 1), then the 'final' alias.
         self._maybe_checkpoint(state, end_epoch)
-        if self.ckpt is not None:
-            self.ckpt.save(state, "final")
+        self._save(state, "final")
         return state

@@ -12,7 +12,9 @@ equal to its plain version at every geometry of the 320 set, split-K
 plans included, and at odd shapes; the quantize bitwise equal to its
 plain version at every served input shape; strided inputs) and the int8
 serving artifact (equal to the live int8 function, its launches counted
-per replay, no host sync).
+per replay, no host sync), and data parallelism at world size 1 (NCCL
+chosen on the card; the grouped step, DDP with the all-reduced N and the
+synced BN, equal to the ungrouped one).
 
 They skip without a CUDA card. On the card::
 
@@ -24,6 +26,7 @@ This file imports no JAX, so it also runs where JAX is not installed.
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import os
 
@@ -44,6 +47,7 @@ from refinedet_tpu_torch.eval.evaluator import eval_postprocess
 from refinedet_tpu_torch.models import build_refinedet, build_refinedet_bn
 from refinedet_tpu_torch.ops import int8_conv, nms_cuda, nms_native
 from refinedet_tpu_torch.ops.nms import nms_sweep_reference
+from refinedet_tpu_torch.parallel import distributed
 from refinedet_tpu_torch.losses import refinedet_multibox_loss
 from refinedet_tpu_torch.quant import DEFAULT_QUANT_SKIP, quantize_variables
 from refinedet_tpu_torch.serve.export import (ServingModel,
@@ -56,6 +60,7 @@ from refinedet_tpu_torch.tools.eval_check import (SyntheticSSDD,
                                                   SyntheticVOC)
 from refinedet_tpu_torch.tools.train_check import (SyntheticDetection,
                                                    StagedSyntheticDetection,
+                                                   biases_before_bn,
                                                    crop_near_ties,
                                                    one_step,
                                                    separated_batch,
@@ -747,3 +752,60 @@ def test_int8_forward_never_syncs(int8_artifact):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     assert dets.shape == (4, 20, 200, 5)
+
+
+# -- data parallelism at world size 1 -------------------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_world1():
+    """A one-rank process group on card 0, for the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    assert distributed.maybe_initialize(
+        f"tcp://localhost:{distributed.free_port()}", 1, 0)
+    yield distributed.default_group()
+    dist.destroy_process_group()
+
+
+def test_maybe_initialize_takes_nccl_on_the_card(cuda, nccl_world1):
+    assert dist.get_backend(nccl_world1) == "nccl"
+    assert distributed.local_device("cuda") == torch.device("cuda", 0)
+    assert torch.cuda.current_device() == 0
+    assert distributed.maybe_initialize()  # a second call is a no-op
+    assert (distributed.process_index(), distributed.process_count()) == \
+        (0, 1)
+
+
+@pytest.mark.parametrize("use_bn", [False, True], ids=["plain", "bn"])
+def test_grouped_step_at_world1_equals_ungrouped(cuda, nccl_world1, use_bn):
+    """One step under the group (DDP over NCCL, the all-reduced N, the
+    BN variant's synced statistics in flax's formula) against today's
+    step, from the same weights on the same batch: RefineDet320 in f32
+    (losses rtol 2e-4, each update 2e-2), RefineDet320-BN in float64
+    (also the running statistics 1e-4 of each tensor's largest; the
+    conv biases that feed a BN left out: their gradient is zero)."""
+    cfg = TrainConfig(max_boxes=8)
+    data = SyntheticDetection(4, 320, 21, seed=5)
+    batch = detection_collate([data[i] for i in range(4)], 8)
+    runs = []
+    for group in (None, nccl_world1):
+        model = build_refinedet("train", 320, 21, use_bn=use_bn,
+                                device=cuda, seed=0)
+        if use_bn:
+            model.net.double()
+        runs.append(one_step(model, batch, cfg, lr=cfg.lr, group=group))
+    (want, want_up), (got, got_up) = runs
+    for k in ("arm_loss_l", "arm_loss_c", "odm_loss_l", "odm_loss_c"):
+        np.testing.assert_allclose(got[k], want[k], rtol=2e-4, err_msg=k)
+    assert got["num_pos_odm"] == want["num_pos_odm"] > 0
+    skip = biases_before_bn(model.net)
+    params = {k for k, _ in model.net.named_parameters()} - skip
+    rel = update_rel_errors(got_up, {k: want_up[k] for k in params})
+    worst = max(rel, key=rel.get)
+    assert rel[worst] <= 2e-2, (worst, rel[worst])
+    stats = [k for k in want_up if ".running_" in k]
+    assert len(stats) == (34 if use_bn else 0)
+    for k in stats:
+        w = want_up[k]
+        assert float((got_up[k] - w).abs().max()) <= \
+            1e-4 * float(w.abs().max()), k

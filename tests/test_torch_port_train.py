@@ -643,7 +643,7 @@ def test_cli_trains_and_resumes_on_cpu(tiny_coco, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--spatial_shards", "2"],
-                                   ["--ngpu", "2"]])
+                                   ["--spatial_shards", "2", "--ngpu", "2"]])
 def test_cli_refuses_unported_flags(flags, tmp_path):
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1, item"):
         cli.main(flags + ["--device", "cpu", "--save_folder",
