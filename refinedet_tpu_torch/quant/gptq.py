@@ -50,16 +50,31 @@ def module_geometry(module) -> tuple:
             pair(module.padding), pair(module.dilation))
 
 
+# Patches one float64 product of ``hessian_of`` takes (~0.6 GB at K=576).
+HESSIAN_ROWS = 1 << 17
+
+
 def hessian_of(x: torch.Tensor, kh: int, kw: int, stride: int,
                padding: int, dilation: int):
     """``H = patches^T @ patches`` over all positions of ``x [B, C, H,
-    W]``, [K, K] float32 with K = C·kh·kw in channel-major (c, kh, kw)
+    W]``, [K, K] float64 with K = C·kh·kw in channel-major (c, kh, kw)
     order, which is both ``F.unfold``'s and ``lax.
-    conv_general_dilated_patches``' order; and the number of patches."""
-    p = F.unfold(x.float(), (kh, kw), dilation=dilation, padding=padding,
-                 stride=stride)
-    pm = p.transpose(1, 2).reshape(-1, p.shape[1])
-    return pm.T @ pm, pm.shape[0]
+    conv_general_dilated_patches``' order; and the number of patches.
+
+    The products accumulate in float64, ``HESSIAN_ROWS`` patches at a
+    time, also inside a bf16 model's autocast (the hooks run there): a
+    float32 Gram matrix over RefineDet512's ~10^6 conv1_2 patches a
+    forward came out with a negative eigenvalue beyond GPTQ's damping,
+    and the solve's Cholesky failed."""
+    with torch.autocast(x.device.type, enabled=False):
+        p = F.unfold(x.float(), (kh, kw), dilation=dilation,
+                     padding=padding, stride=stride)
+        pm = p.transpose(1, 2).reshape(-1, p.shape[1])
+        h = pm.new_zeros((pm.shape[1], pm.shape[1]), dtype=torch.float64)
+        for r in range(0, pm.shape[0], HESSIAN_ROWS):
+            rows = pm[r:r + HESSIAN_ROWS].double()
+            h += rows.T @ rows
+        return h, pm.shape[0]
 
 
 def accumulate_hessians(model, batches: Iterable,

@@ -14,7 +14,9 @@ plain version at every served input shape; strided inputs) and the int8
 serving artifact (equal to the live int8 function, its launches counted
 per replay, no host sync), and data parallelism at world size 1 (NCCL
 chosen on the card; the grouped step, DDP with the all-reduced N and the
-synced BN, equal to the ungrouped one).
+synced BN, equal to the ungrouped one), and the trained-fixture tools
+(the fixture built on the card, the shared training core for 3 steps and
+its AP through K1, ``bench_serve`` with 8 requests).
 
 They skip without a CUDA card. On the card::
 
@@ -55,7 +57,8 @@ from refinedet_tpu_torch.serve.export import (ServingModel,
                                               fused_postprocess,
                                               load_serving, make_serving_fn,
                                               save_serving)
-from refinedet_tpu_torch.tools import int8_bench
+from refinedet_tpu_torch.tools import bench_serve, fixture_train, int8_bench
+from refinedet_tpu_torch.tools.fixtures import coco_fixture
 from refinedet_tpu_torch.tools.eval_check import (SyntheticSSDD,
                                                   SyntheticVOC)
 from refinedet_tpu_torch.tools.train_check import (SyntheticDetection,
@@ -809,3 +812,48 @@ def test_grouped_step_at_world1_equals_ungrouped(cuda, nccl_world1, use_bn):
         w = want_up[k]
         assert float((got_up[k] - w).abs().max()) <= \
             1e-4 * float(w.abs().max()), k
+
+
+# -- the trained-fixture tools -----------------------------------------------
+
+def test_tools_fixture_on_the_card(cuda):
+    """The fixture upsampled on the card: within one grey level of the
+    CPU's (rounding at .5), the same targets and ground truth."""
+    got, want = coco_fixture(4, 3, 320, cuda), coco_fixture(4, 3, 320, "cpu")
+    for a, b in zip(got.images, want.images):
+        assert a.dtype == np.uint8 and a.shape == (320, 320, 3)
+        assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+    for (gb, gl), (wb, wl) in zip(got.targets, want.targets):
+        np.testing.assert_array_equal(gb, wb)
+        np.testing.assert_array_equal(gl, wl)
+    assert got._COCO.dataset == want._COCO.dataset
+
+
+def test_fixture_train_three_steps_on_the_card(cuda):
+    """``train_from_scratch`` for 3 bf16 steps (every loss logged, finite)
+    and ``ap_of`` through the Evaluator: one K1 launch for one batch."""
+    ds = coco_fixture(4, 3, 320, cuda)
+    lines = []
+    model, logged = fixture_train.train_from_scratch(
+        0, 320, 2, 3, 2, ds, fixture_train.decay_schedule(3), cuda,
+        log_every=1, log=lines.append)
+    assert [it for it, _ in logged] == [0, 1, 2, 2]
+    assert all(np.isfinite(loss) for _, loss in logged)
+    before = nms_cuda.nms_sweep.launches
+    ap = fixture_train.ap_of(build_refinedet("test", 320, 2,
+                                             dtype=torch.bfloat16,
+                                             device=cuda),
+                             fixture_train.net_state(model.net), ds)
+    assert nms_cuda.nms_sweep.launches - before == 1
+    assert 0.0 <= ap["ap"] <= ap["ap50"] <= 1.0
+
+
+def test_bench_serve_on_the_card(cuda):
+    """8 requests from 4 clients through the engine (twice) and HTTP on a
+    fused-NMS artifact: none fails, K1 runs in the graphs."""
+    out = bench_serve.main(["--requests", "8", "--clients", "4",
+                            "--max_batch", "4", "--fused_nms"])
+    assert set(out["results"]) == {"engine-warm", "engine", "http"}
+    for leg in out["results"].values():
+        assert leg["errors"] == 0 and leg["ok"] == 8
+    assert out["fused_nms"] and out["launches"]["nms_sweep"] >= 3

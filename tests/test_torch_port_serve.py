@@ -198,7 +198,8 @@ def test_port_imports_no_jax():
         for name in _imports(path):
             root = name.split(".")[0]
             assert root not in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                "refinedet_tpu", "tools"), \
+                                "refinedet_tpu", "tools", "tests",
+                                "data_fixtures"), \
                 f"{path} imports {name}"
 
 
