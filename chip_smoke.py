@@ -110,7 +110,16 @@ non-zero exit and no result line:
      live function, the artifact eager and the graph replay, each end to
      end (host clock), on the device (CUDA events, card preloaded) and the
      share outside the device; export, save, load and capture seconds and
-     the file's MB;
+     the file's MB; (e) RefineDet320 in f32 (the ODM confidence head at
+     zero weights and seeded biases, as the CPU export test's, and the
+     loc heads' weights scaled by 1/100 so the decoded boxes stay near
+     their anchors) exported with ``platforms=("cuda", "cpu")`` into one
+     file: the cuda program equals the live function on the card
+     exactly, the cpu program the live function of the model's CPU copy
+     exactly, and card and CPU agree on at least 99% of the kept
+     detection rows within 6a's rtol of 2e-4 (a row flips only where an
+     IoU test lies within the forwards' drift of the threshold); the
+     file's MB against the weights' (once per program);
  11. int8 PTQ (``quant/``) on the int8 path's two kernels
      (``csrc/int8_conv.cu``: the convolution on wgmma fed by TMA, the
      activation quantize in one pass), RefineDet320 (VOC, 21 classes),
@@ -187,7 +196,27 @@ non-zero exit and no result line:
      printed, each above 0; then K1 at the tools' eval shapes on 13a's
      trained candidates (G = 16 and 48, K = 128, +1 areas): the keep
      mask equal to its plain version's, graph replay beside the plain
-     version's time and the bound.
+     version's time and the bound;
+ 14. profiling on the card (``utils/timer.py``, ``utils/trace_summary.py``
+     and the four tools), beside the card's name and power limit: (a)
+     ``trace_infer``: RefineDet320 bf16 inference at batch 128, 4
+     executions back to back under ``torch.profiler``, summarized (each
+     execution's device ms, the gaps, the idle %, the device time by
+     launching op, the top kernels and layout copies; each execution's
+     busy time within its span, the categories adding up to the device
+     total); (b) ``trace_train_step``: the bf16 train step at batch 128,
+     3 steps, the same; (c) ``profile_train_step --remat`` at batch 64,
+     10 iterations: each variant's ms and peak memory and the attribution
+     block; (d) ``flops_train_step`` at batch 64: FLOPs and unfused bytes,
+     and with (c)'s ``full`` ms the step's TFLOP/s against the dense bf16
+     peak; (e) one eager fused-NMS serving batch of 32 and one int8
+     forward under ``profile_trace``: the trace's calls of the op and its
+     kernels by name for K1, the int8 conv and the quantize equal the
+     wrappers' counts, 1, 26 and 26 (these launches count in the kernels
+     line); (f) ``ops/nms.py:soft_nms`` on the card, linear, gaussian and
+     hard on a seeded K = 200 set: indices and keep equal the CPU's and
+     the kept set the host ``nms_native.soft_nms``'s, scores bitwise
+     (gaussian within 20 ulps), ms a call and kernel launches a call.
 
 The line before the last is the card's name and power limit from
 nvidia-smi; the last is {"ok": true, "device": {...}}. TF32 is off for
@@ -248,6 +277,14 @@ BN_STAGING = 1792         # 9c: 2 x 896
 ARTIFACT_BATCHES = (1, 8, 32)  # 10a: artifact against the live function
 ARTIFACT_REPS = 10        # 10d: timed calls of each path
 ARTIFACT_SPIN_MS = 50     # 10d: card spin before each device-timed call
+DETS_CARD_CPU_RTOL = 2e-4  # 10e: 6a's card-against-CPU rtol
+PROFILE_INFER_BATCH, PROFILE_INFER_ITERS = 128, 4   # 14a: trace_infer's
+PROFILE_TRAIN_BATCH, PROFILE_TRAIN_STEPS = 128, 3   # 14b: trace_train_step's
+PROFILE_STEP_BATCH, PROFILE_STEP_ITERS = 64, 10     # 14c-d: the tools'
+BF16_PEAK_TFLOPS = 989.0  # H100 SXM dense bf16, NVIDIA's data sheet
+SOFT_NMS_K = 200          # 14f
+# 14f: card against CPU; the CPU test's limits (tests/test_torch_port_nms)
+SOFT_NMS_ULPS = {"linear": 0, "gaussian": 20, "hard": 0}
 DDP_GLOBAL_BATCH = 4      # 12b: 2 gloo ranks x 2 rows on the one card
 DDP_STEPS = 3             # 12b: f32 steps of RefineDet320
 DDP_LR, DDP_CLIP = 1e-5, 5.0  # 12b: the JAX package's multi-process test's
@@ -1264,6 +1301,27 @@ def serve_requests(engine, server, requests, label: str) -> tuple:
     return results, stats, launches
 
 
+def matched_rows(a: np.ndarray, b: np.ndarray, rtol: float) -> tuple:
+    """Rows of fused detections ``[B, C-1, K, 5]`` kept in ``a`` (score
+    above 0) that have a kept row of ``b`` in the same image and class
+    within ``rtol`` of the larger magnitude (at least 1) on all five
+    values, and the same for ``b`` against ``a``: ((matched in a, matched
+    in b), (rows of a, rows of b)). Random weights decode boxes far
+    outside 0-1, so the tolerance is relative."""
+    matched, rows = [0, 0], [0, 0]
+    for ra, rb in zip(a.reshape(-1, *a.shape[2:]),
+                      b.reshape(-1, *b.shape[2:])):
+        ra, rb = ra[ra[:, 4] > 0], rb[rb[:, 4] > 0]
+        x, y = ra[:, None], rb[None]
+        scale = np.maximum(1.0, np.maximum(np.abs(x), np.abs(y)))
+        close = (np.abs(x - y) <= rtol * scale).all(-1)
+        for i, (rows_i, hit) in enumerate(((ra, close.any(1)),
+                                           (rb, close.any(0)))):
+            rows[i] += len(rows_i)
+            matched[i] += int(hit.sum())
+    return tuple(matched), tuple(rows)
+
+
 def artifact_phase(dev: torch.device, smi: str, rng) -> tuple:
     """Phase 10: the serving artifact on the card; returns its numbers and
     K1's launches on its main path (10b: the engine and the HTTP server
@@ -1275,7 +1333,8 @@ def artifact_phase(dev: torch.device, smi: str, rng) -> tuple:
     from refinedet_tpu_torch.serve import (BatchingEngine, Server,
                                            load_serving, make_serving_fn)
     from refinedet_tpu_torch.serve.export import (export_inference,
-                                                  inference_module,
+                                                  inference_module, model_on,
+                                                  save_serving,
                                                   serving_metadata,
                                                   write_serving)
     from refinedet_tpu_torch.tools.k1_bench import noise_images
@@ -1290,7 +1349,7 @@ def artifact_phase(dev: torch.device, smi: str, rng) -> tuple:
         t0 = time.perf_counter()
         program = export_inference(model, fused_nms={}, **wire)
         t1 = time.perf_counter()
-        write_serving(path, program,
+        write_serving(path, {"cuda": program},
                       serving_metadata(model, None, {}, **wire))
         t2 = time.perf_counter()
         serving = load_serving(path)
@@ -1445,6 +1504,78 @@ def artifact_phase(dev: torch.device, smi: str, rng) -> tuple:
             f"capture {out[key]['capture_s']:.2f} s, file "
             f"{out[key]['file_mb']:.1f} MB")
     del m320, s320, live320, mbn, sbn, livebn, engine, server
+    torch.cuda.empty_cache()
+
+    # -- 10e. one file, a program for the card and one for the CPU ---------
+    # f32 (TF32 off), the ODM confidence head at zero weights and seeded
+    # biases (as the CPU export test's): a score depends on its anchor
+    # only, so both devices order the candidates alike and only the
+    # boxes' drift can move an IoU test across the threshold. The loc
+    # heads' weights are scaled by 1/100: random ones decode boxes up to
+    # 1e24, where the decode's exp turns the forwards' drift into 1e-3
+    # relative differences.
+    m2 = build_refinedet("test", SIZE, NUM_CLASSES, device=dev, seed=0)
+    with torch.no_grad():
+        for name, p in m2.net.named_parameters():
+            if name.startswith("odm_conf."):
+                p.copy_(torch.from_numpy(rng.uniform(-4, 4, p.shape).astype(
+                    np.float32)) if name.endswith("bias") else
+                    torch.zeros_like(p))
+            elif name.startswith(("arm_loc.", "odm_loc.")) and \
+                    name.endswith("weight"):
+                p.mul_(0.01)
+    path = os.path.join(folder, "refinedet320_cuda_cpu.rdtpu")
+    t0 = time.perf_counter()
+    meta = save_serving(m2, None, path, fused_nms={},
+                        platforms=("cuda", "cpu"))
+    t1 = time.perf_counter()
+    card = load_serving(path)
+    host = load_serving(path, device="cpu")
+    t2 = time.perf_counter()
+    mb = os.path.getsize(path) / 1e6
+    weights_mb = sum(t.numel() * t.element_size()
+                     for t in m2.net.state_dict().values()) / 1e6
+    check(meta["platforms"] == ["cuda", "cpu"] and card.meta["device"]
+          == str(m2.priors.device) and host.meta["device"] == "cpu",
+          f"10e: platforms {meta['platforms']}, devices "
+          f"{card.meta['device']} / {host.meta['device']}")
+    check(1.9 * weights_mb < mb < 2 * 1.05 * weights_mb + 5,
+          f"10e: {mb:.1f} MB for two programs of {weights_mb:.1f} MB of "
+          "weights")
+    imgs = noise_images(rng, 2)
+    got_card, got_host = card(imgs), host(imgs)
+    want_card = make_serving_fn(m2, None, fused_nms={})(imgs)
+    want_host = make_serving_fn(model_on(m2, "cpu"), None,
+                                fused_nms={})(imgs)
+    check(np.array_equal(got_card, want_card),
+          "10e: the cuda program differs from the live function")
+    check(np.array_equal(got_host, want_host),
+          "10e: the cpu program differs from the live function on the CPU")
+    matched, rows = matched_rows(got_card, got_host, DETS_CARD_CPU_RTOL)
+    same = (got_card[..., 4] > 0) == (got_host[..., 4] > 0)
+    rel = np.abs(got_card - got_host) / np.maximum(
+        1.0, np.maximum(np.abs(got_card), np.abs(got_host)))
+    log("artifact", f"10e: card against CPU, row for row: kept masks equal "
+        f"in {int(same.sum())} of {same.size} slots; largest relative "
+        f"difference {float(rel.max()):.3g}, largest absolute "
+        f"{float(np.abs(got_card - got_host).max()):.3g}, largest |value| "
+        f"{float(np.abs(got_card).max()):.3g}")
+    check(min(matched) >= 0.99 * max(rows) and min(rows) > 0,
+          f"10e: card and CPU programs: {matched} of {rows} rows matched "
+          f"within rtol {DETS_CARD_CPU_RTOL}")
+    out["320_f32_cuda_cpu"] = {
+        "export_s": t1 - t0, "load_s": t2 - t1, "file_mb": mb,
+        "weights_mb": weights_mb, "program_bytes": meta["program_bytes"],
+        "rows": rows, "matched": matched}
+    log("artifact", f"10e: RefineDet320 f32, one file with a cuda and a cpu "
+        f"program: {mb:.1f} MB for {weights_mb:.1f} MB of weights (once "
+        f"per program; {meta['program_bytes']} bytes), export "
+        f"{t1 - t0:.2f} s, both loads {t2 - t1:.2f} s; the cuda program "
+        "equals the live function on the card exactly, the cpu program "
+        "the live function on the CPU exactly; card against CPU: "
+        f"{matched[0]} of {rows[0]} card rows and {matched[1]} of {rows[1]} "
+        f"CPU rows with a counterpart within rtol {DETS_CARD_CPU_RTOL}")
+    del m2, card, host
     shutil.rmtree(folder)
     torch.cuda.empty_cache()
     return out, launches
@@ -1632,7 +1763,8 @@ def int8_phase(dev: torch.device, smi: str, rng) -> tuple:
     path = os.path.join(folder, "refinedet320_int8.rdtpu")
     t0 = time.perf_counter()
     program = export_inference(model_q, fused_nms={})
-    write_serving(path, program, serving_metadata(model_q, None, {}))
+    write_serving(path, {"cuda": program},
+                  serving_metadata(model_q, None, {}))
     serving = load_serving(path)
     out["export_save_load_s"] = time.perf_counter() - t0
     check(serving.meta["int8"] and serving.meta["quant_skip"]
@@ -2233,6 +2365,188 @@ def tools_phase(dev: torch.device) -> tuple:
     return out, launches
 
 
+def profile_phase(dev: torch.device, smi: str, rng) -> tuple:
+    """Phase 14: the profiling tools on the card; returns their numbers
+    and the hand-written kernels' launches on 14e's main path (K1, the
+    int8 conv, the quantize)."""
+    from refinedet_tpu_torch.models import build_refinedet
+    from refinedet_tpu_torch.ops import int8_conv, nms_cuda
+    from refinedet_tpu_torch.ops import nms_native
+    from refinedet_tpu_torch.ops.nms import soft_nms
+    from refinedet_tpu_torch.quant import (DEFAULT_QUANT_SKIP,
+                                           quantize_variables)
+    from refinedet_tpu_torch.serve import make_serving_fn
+    from refinedet_tpu_torch.tools import (flops_train_step, int8_bench,
+                                           profile_train_step, trace_infer,
+                                           trace_train_step)
+    from refinedet_tpu_torch.tools.k1_bench import noise_images
+    from refinedet_tpu_torch.utils.timer import profile_trace, \
+        step_annotation
+    from refinedet_tpu_torch.utils.trace_summary import (format_summary,
+                                                         trace_stats)
+
+    out = {"card": smi}
+    folder = tempfile.mkdtemp(prefix="chip_smoke_traces_")
+
+    def traced(name, capture, batch, runs):
+        logdir = os.path.join(folder, name)
+        t0 = time.perf_counter()
+        capture(logdir, batch, runs, dev)
+        t1 = time.perf_counter()
+        stats = trace_stats(logdir)
+        t2 = time.perf_counter()
+        for line in format_summary(stats, batch).splitlines():
+            log("profile", f"{name}: {line}")
+        ex = stats["executions"]
+        check(len(ex) == runs, f"{name}: {len(ex)} executions traced")
+        check(all(x["busy_ms"] <= x["span_ms"] for x in ex)
+              and stats["busy_ms"] <= stats["span_ms"],
+              f"{name}: device busy above its span")
+        cat_sum = sum(stats["categories_ms"].values())
+        check(abs(cat_sum - stats["device_total_ms"]) <= 1e-9,
+              f"{name}: categories sum to {cat_sum} of "
+              f"{stats['device_total_ms']} ms")
+        log("profile", f"{name}: capture {t1 - t0:.1f} s, summary "
+            f"{t2 - t1:.1f} s; categories sum to the device total "
+            f"({stats['device_total_ms']:.3f} ms); busy <= span per "
+            "execution")
+        return {k: stats[k] for k in ("executions", "gaps_ms", "busy_ms",
+                                      "span_ms", "idle_pct",
+                                      "categories_ms")}
+
+    # -- 14a. trace_infer: RefineDet320 bf16 inference, batch 128 ----------
+    log("profile", smi)
+    out["infer"] = traced("14a trace_infer", trace_infer.capture,
+                          PROFILE_INFER_BATCH, PROFILE_INFER_ITERS)
+    torch.cuda.empty_cache()
+
+    # -- 14b. trace_train_step: the train step, batch 128 ------------------
+    out["train"] = traced("14b trace_train_step", trace_train_step.capture,
+                          PROFILE_TRAIN_BATCH, PROFILE_TRAIN_STEPS)
+    torch.cuda.empty_cache()
+
+    # -- 14c. profile_train_step --remat: the attribution ------------------
+    t0 = time.perf_counter()
+    prof = profile_train_step.main([str(PROFILE_STEP_BATCH),
+                                    str(PROFILE_STEP_ITERS), "--remat"])
+    check(all(np.isfinite(v) and v > 0 for v in prof["ms"].values()),
+          f"14c: times {prof['ms']}")
+    log("profile", "14c: " + "; ".join(
+        f"{k} {v:.2f} ms, peak {prof['peak_gib'][k]:.2f} GiB"
+        for k, v in prof["ms"].items()) +
+        f" ({time.perf_counter() - t0:.1f} s)")
+    out["attribution"] = prof
+    torch.cuda.empty_cache()
+
+    # -- 14d. flops_train_step: FLOPs and the step's TFLOP/s -----------------
+    flops = flops_train_step.main([str(PROFILE_STEP_BATCH)])
+    step_flops_ = flops["full step"][0]
+    tflops = step_flops_ / (prof["ms"]["full"] * 1e-3) / 1e12
+    log("profile", f"14d: {smi}: full step at batch {PROFILE_STEP_BATCH} "
+        f"{step_flops_ / 1e12:.3f} TFLOP (FlopCounterMode) in "
+        f"{prof['ms']['full']:.2f} ms (14c) = {tflops:.1f} TFLOP/s, "
+        f"{100 * tflops / BF16_PEAK_TFLOPS:.1f}% of the dense bf16 peak "
+        f"{BF16_PEAK_TFLOPS} TFLOP/s (NVIDIA's H100 SXM data sheet, at "
+        "700 W)")
+    out["flops"] = {k: list(v) if isinstance(v, tuple) else v
+                    for k, v in flops.items()}
+    out["step_tflops"] = tflops
+    torch.cuda.empty_cache()
+
+    # -- 14e. the hand-written kernels in a trace --------------------------
+    model = build_refinedet("test", SIZE, NUM_CLASSES, dtype=torch.bfloat16,
+                            device=dev, seed=0)
+    serve = make_serving_fn(model, None, fused_nms={})
+    model_q = build_refinedet("test", SIZE, NUM_CLASSES,
+                              dtype=torch.bfloat16, device=dev, quant=True,
+                              quant_skip=DEFAULT_QUANT_SKIP)
+    model_q.net.load_state_dict(quantize_variables(
+        model_q, model.net.state_dict(),
+        int8_bench.made_up_stats(model_q.net, 0)))
+    imgs = noise_images(rng, SERVE_BATCH)
+    x = torch.from_numpy(imgs).to(dev)
+    with torch.inference_mode():
+        serve(imgs)
+        model_q.raw_forward(x)  # builds, plans, warm-up
+        torch.cuda.synchronize()
+        logdir = os.path.join(folder, "14e")
+        counters = (nms_cuda.nms_sweep, int8_conv.int8_conv,
+                    int8_conv.int8_quantize)
+        for c in counters:
+            c.launches = 0
+        with profile_trace(logdir, dev):
+            with step_annotation("serve/fused_nms"):
+                serve(imgs)
+            with step_annotation("int8/forward"):
+                model_q.raw_forward(x)
+        launched = [c.launches for c in counters]
+    stats = trace_stats(logdir)
+    calls = [stats["handwritten_calls"].get(n, 0) for n in
+             ("nms_sweep (K1)", "int8_conv", "int8_quantize")]
+    named = [stats["handwritten_kernels"][n] for n in
+             ("nms_sweep (K1)", "int8_conv", "int8_quantize")]
+    log("profile", f"14e: launches counted by the wrappers (K1, int8 conv, "
+        f"quantize) {launched}; op calls in the trace {calls}; kernels by "
+        f"name {named}; device ms by op " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(
+                stats["categories_ms"].items(), key=lambda kv: -kv[1])))
+    check(launched == [1, 26, 26] and calls == launched and named == launched,
+          f"14e: wrappers {launched}, trace op calls {calls}, kernels by "
+          f"name {named}, expected [1, 26, 26]")
+    out["handwritten"] = {"launches": launched, "trace_calls": calls,
+                          "trace_kernels": named,
+                          "categories_ms": stats["categories_ms"]}
+    del model, serve, model_q, x
+    torch.cuda.empty_cache()
+
+    # -- 14f. soft_nms on the card ------------------------------------------
+    xy = rng.uniform(0, 240, (SOFT_NMS_K, 2))
+    wh = rng.uniform(8, 60, (SOFT_NMS_K, 2))
+    boxes = np.concatenate([xy, xy + wh], 1).astype(np.float32)
+    scores = rng.uniform(0.01, 1.0, SOFT_NMS_K).astype(np.float32)
+    b, s = torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev)
+    out["soft_nms"] = {}
+    for method in ("linear", "gaussian", "hard"):
+        want = soft_nms(torch.from_numpy(boxes), torch.from_numpy(scores),
+                        method=method)
+        got = soft_nms(b, s, method=method)
+        keep = got.keep.cpu()
+        kept = got.indices.cpu()[keep]
+        ulps = int(np.abs(
+            got.scores.cpu().numpy().view(np.int32).astype(np.int64)
+            - want.scores.numpy().view(np.int32).astype(np.int64)).max())
+        dets = np.concatenate([boxes, scores[:, None]], 1)
+        host = nms_native.soft_nms(dets, method=method)
+        host_scores = {i: dets[i, 4] for i in host}
+        gap = max(abs(float(got.scores[j]) - float(host_scores[int(i)]))
+                  for j, i in zip(np.nonzero(keep.numpy())[0],
+                                  kept.numpy()))
+        check(torch.equal(got.indices.cpu(), want.indices)
+              and torch.equal(keep, want.keep),
+              f"14f {method}: indices or keep differ from the CPU")
+        check(sorted(host) == sorted(kept.tolist()),
+              f"14f {method}: kept set differs from nms_native.soft_nms")
+        check(ulps <= SOFT_NMS_ULPS[method],
+              f"14f {method}: scores {ulps} ulps from the CPU's")
+        ms = cuda_ms(lambda: soft_nms(b, s, method=method), 5, warmup=1)
+        logdir = os.path.join(folder, f"14f_{method}")
+        with profile_trace(logdir, dev):
+            with step_annotation(f"soft_nms/{method}"):
+                soft_nms(b, s, method=method)
+        kernels = sum(trace_stats(logdir)["kernel_counts"].values())
+        out["soft_nms"][method] = {"kept": int(keep.sum()), "ulps": ulps,
+                                   "host_gap": gap, "ms": ms,
+                                   "kernels_per_call": kernels}
+        log("profile", f"14f soft_nms {method}, K={SOFT_NMS_K}: "
+            f"{int(keep.sum())} kept; indices and keep equal the CPU's "
+            f"and nms_native's kept set; scores {ulps} ulps from the CPU's "
+            f"(limit {SOFT_NMS_ULPS[method]}), {gap:.3g} from the host's; "
+            f"{ms:.3f} ms a call (CUDA events), {kernels} kernel launches "
+            "a call (trace)")
+    shutil.rmtree(folder)
+    return out, launched
+
+
 def time_sweep(cand, valid, label, thresh, plus_one=False):
     """K1's device ms per launch and the plain version's ms on these
     candidates at IoU ``thresh``, and K1's bound."""
@@ -2553,8 +2867,17 @@ def main() -> int:
     for entry, n in zip(int8_entries, tools_launches[1:]):
         entry["launches"] += n
     log("time", f"phase 13 took {time.perf_counter() - t13:.1f} s")
-    log("time", f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"tools": tools}), flush=True)
+
+    # -- 14. profiling on the card ----------------------------------------
+    t14 = time.perf_counter()
+    profiled, profile_launches = profile_phase(dev, smi, rng)
+    launches += profile_launches[0]
+    for entry, n in zip(int8_entries, profile_launches[1:]):
+        entry["launches"] += n
+    log("time", f"phase 14 took {time.perf_counter() - t14:.1f} s")
+    log("time", f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"profile": profiled}), flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "nms_sweep",

@@ -6,7 +6,9 @@ same score-sorted candidates, computed from a dense ``[G, K, K]`` IoU
 matrix and a sequential sweep over the rows. Both area conventions are
 supported: ``plus_one=True`` is the C/CUDA/numpy family's
 ``(x2-x1+1)*(y2-y1+1)`` area, ``plus_one=False`` the torch NMS's.
-Soft-NMS is not ported yet.
+``soft_nms`` is the on-device Soft-NMS (``cpu_nms.pyx:70-163``'s
+semantics), in tensor ops: the JAX package computes it with an XLA loop
+and no Pallas kernel.
 """
 
 from __future__ import annotations
@@ -86,3 +88,52 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,
     keep = nms_sweep_reference(cand[None], valid[None], iou_thresh,
                                plus_one=plus_one)[0]
     return NmsResult(idx, keep, sc)
+
+
+def soft_nms(boxes: torch.Tensor, scores: torch.Tensor,
+             iou_thresh: float = 0.3, sigma: float = 0.5,
+             score_thresh: float = 0.001, method: str = "linear",
+             top_k: int = 200) -> NmsResult:
+    """Soft-NMS (linear / gaussian / hard) over one set: boxes ``[N, 4]``,
+    scores ``[N]``, on their device.
+
+    Port of ``refinedet_tpu/ops/nms.py:soft_nms``: the ``min(top_k, N)``
+    best candidates (stable descending), +1 areas as the Cython original,
+    then ``k`` rounds, each taking the current best of the pool that is
+    left (first index on ties), decaying the rest of the pool against it
+    and dropping from the pool every box whose decayed score falls below
+    ``score_thresh``. A round whose best is at or below ``score_thresh``
+    changes nothing. Returns the candidates' indices, ``keep`` (the boxes
+    that had a turn) and their rescored scores. The rounds are tensor
+    ops: nothing waits for the device.
+    """
+    if method not in ("linear", "gaussian", "hard"):
+        raise ValueError(f"method must be linear, gaussian or hard, got "
+                         f"{method!r}")
+    idx, live, cand, _ = select_candidates(boxes, scores, top_k)
+    k = live.shape[-1]
+    iou = iou_pairwise(cand, cand, plus_one=True)
+    thresh, floor = as_f32(iou_thresh), as_f32(score_thresh)
+    # A device scalar: the card divides by a host scalar as a multiply by
+    # its reciprocal, the CPU (and XLA) by a true division.
+    sigma_t = torch.full((), sigma, dtype=iou.dtype, device=iou.device)
+    col = torch.arange(k, device=live.device)
+    processed = torch.zeros(k, dtype=torch.bool, device=live.device)
+    dead = torch.zeros_like(processed)
+    for _ in range(k):
+        in_pool = ~(processed | dead)
+        pool = torch.where(in_pool, live, -float("inf"))
+        cur = torch.argmax(pool).view(1)
+        has = pool.gather(0, cur) > floor
+        row = iou.index_select(0, cur)[0]
+        if method == "linear":
+            decay = torch.where(row > thresh, 1.0 - row, 1.0)
+        elif method == "gaussian":
+            decay = torch.exp(-(row * row) / sigma_t)
+        else:
+            decay = torch.where(row > thresh, 0.0, 1.0)
+        do = in_pool & (col != cur) & has
+        live = torch.where(do, live * decay, live)
+        dead |= do & (live < floor)
+        processed |= has & (col == cur)
+    return NmsResult(idx, processed, live)

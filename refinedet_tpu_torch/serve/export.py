@@ -23,17 +23,25 @@ The int8 twin (``build_refinedet(..., quant=True)`` filled by
 ``quant.quantize_model``) exports the same way; its metadata says
 ``"int8": true`` and the ``quant_skip`` it was built with.
 
-File format: ``MAGIC | u32 json_len | json metadata | torch.export.save
-bytes``. MAGIC is not the JAX package's, so each loader refuses the other
-package's files with a clear error.
+File format: ``MAGIC | u32 json_len | json metadata | program bytes``,
+one ``torch.export.save`` blob per platform, in the order of the
+metadata's ``platforms``, each of the length ``program_bytes`` gives.
+MAGIC is not the JAX package's, so each loader refuses the other
+package's files with a clear error. A file of the first layout (one
+program, a ``device`` key and no ``platforms``) still loads.
 
-Unlike the JAX artifact, which is cross-platform, this one runs only on
-the device it was exported on, which its metadata records (``device``).
-``torch.export`` records bf16 autocast for one device type: an artifact
-exported on the CPU and moved to the card would run in float32 without a
-word. So ``load_serving`` never moves an artifact, and it raises for a
-CUDA artifact on a host without a card. Export on the card to serve on
-the card.
+``torch.export`` records bf16 autocast for one device type, and a
+program's weights live on the device it was exported on: a program moved
+to another device type would run in float32 without a word, or not at
+all. So, as the JAX artifact holds one lowering per platform,
+``save_serving(..., platforms=("cuda", "cpu"))`` exports one program per
+device type, each from a copy of the model on that device, under that
+device's autocast. Each program holds its own copy of the weights: the
+file holds them once per platform. ``load_serving(path, device)`` takes
+the program of the device asked for, never another one: a file without
+a program for that device raises, and a ``cuda`` request without a card
+raises. The op ``refinedet_tpu_torch::nms_sweep`` picks K1 on the card
+and its plain version on the CPU by itself, so both programs call it.
 
 On the card, ``ServingModel.warm_up(batch_sizes)`` captures one CUDA
 graph per batch size, the counterpart of XLA's one executable per bucket:
@@ -43,6 +51,7 @@ buffer and replays the graph (the copies in and out stay outside it).
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import io
 import json
@@ -56,9 +65,11 @@ from torch import nn
 
 from refinedet_tpu_torch.config import VOC_MEANS, DetectConfig
 from refinedet_tpu_torch.detect.detection import detect_refinedet
+from refinedet_tpu_torch.device import resolve_device
 from refinedet_tpu_torch.ops import int8_conv, nms_cuda
 from refinedet_tpu_torch.ops.dispatch import class_parallel_nms
 
+PLATFORMS = ("cuda", "cpu")
 MAGIC = b"RDTPUTORCH1\n"
 JAX_MAGIC = b"RDTPUSRV1\n"  # refinedet_tpu/serve/export.py's artifacts
 FORMAT = "refinedet-tpu-torch-serving"
@@ -274,9 +285,10 @@ def serving_metadata(model, batch_size: Optional[int] = None,
                      fused_nms: Optional[Mapping] = None,
                      uint8_input: bool = False,
                      input_mean: Optional[Sequence[float]] = None) -> Dict:
-    """The artifact's metadata: the JAX package's keys, with ``device``
-    and ``dtype`` for its ``platforms`` and ``torch_version`` for its
-    ``jax_version``."""
+    """The artifact's metadata: the JAX package's keys, with ``dtype``
+    beside its ``platforms`` and ``torch_version`` for its
+    ``jax_version``. ``write_serving`` adds ``platforms`` and
+    ``program_bytes``."""
     mean_bgr = _mean_bgr(uint8_input, input_mean)
     if uint8_input:
         inp = ("NHWC uint8, raw RGB pixels; the artifact subtracts "
@@ -293,7 +305,6 @@ def serving_metadata(model, batch_size: Optional[int] = None,
         "use_bn": model.use_bn,
         "int8": bool(model.quant),
         "quant_skip": list(model.quant_skip) if model.quant else None,
-        "device": str(model.priors.device),
         "dtype": str(model.dtype).replace("torch.", ""),
         "fused_nms": dict(fused_nms) if fused_nms is not None else None,
         "input_dtype": "uint8" if uint8_input else "float32",
@@ -304,32 +315,84 @@ def serving_metadata(model, batch_size: Optional[int] = None,
     }
 
 
-def write_serving(path: str, program: torch.export.ExportedProgram,
-                  meta: Mapping) -> None:
-    """Write ``program`` and ``meta`` as one artifact file."""
-    blob = io.BytesIO()
-    torch.export.save(program, blob)
+def check_platforms(platforms: Sequence[str]) -> Tuple[str, ...]:
+    """``platforms`` as a tuple of distinct device types, each ``cuda``
+    or ``cpu``; ``cuda`` needs a visible card."""
+    platforms = tuple(platforms)
+    if "tpu" in platforms:
+        raise ValueError(
+            "platforms: 'tpu' programs are written by the JAX package's "
+            "exporter (python tools/export_serving.py --platforms tpu,...); "
+            f"this one writes {'/'.join(PLATFORMS)} programs")
+    unknown = [p for p in platforms if p not in PLATFORMS]
+    if unknown or not platforms or len(set(platforms)) != len(platforms):
+        raise ValueError(f"platforms: distinct entries of {PLATFORMS} "
+                         f"expected, got {platforms}")
+    if "cuda" in platforms:
+        resolve_device("cuda")
+    return platforms
+
+
+def model_on(model, platform: str):
+    """``model`` itself if it lives on ``platform``, else a copy of it
+    (net, priors) on that device type; ``model`` is not moved."""
+    if model.device.type == platform:
+        return model
+    other = copy.copy(model)
+    other.device = torch.device(platform)
+    other.net = copy.deepcopy(model.net).to(other.device)
+    other.priors = model.priors.to(other.device)
+    return other
+
+
+def write_serving(path: str,
+                  programs: Mapping[str, torch.export.ExportedProgram],
+                  meta: Mapping) -> Dict:
+    """Write one artifact file holding ``programs`` (device type ->
+    program) and ``meta``; returns the metadata as written, with
+    ``platforms`` and ``program_bytes``."""
+    blobs = []
+    for program in programs.values():
+        blob = io.BytesIO()
+        torch.export.save(program, blob)
+        blobs.append(blob.getbuffer())
+    meta = dict(meta, platforms=list(programs),
+                program_bytes=[len(b) for b in blobs])
     header = json.dumps(meta, sort_keys=True).encode("utf-8")
     with open(path, "wb") as f:
         f.write(MAGIC)
         f.write(struct.pack("<I", len(header)))
         f.write(header)
-        f.write(blob.getbuffer())
+        for blob in blobs:
+            f.write(blob)
+    return meta
 
 
 def save_serving(model, state: Optional[Mapping], path: str,
                  batch_size: Optional[int] = None,
                  fused_nms: Optional[Mapping] = None,
                  uint8_input: bool = False,
-                 input_mean: Optional[Sequence[float]] = None) -> dict:
-    """Export and write a serving artifact; returns its metadata."""
-    program = export_inference(model, state, batch_size=batch_size,
-                               fused_nms=fused_nms, uint8_input=uint8_input,
-                               input_mean=input_mean)
+                 input_mean: Optional[Sequence[float]] = None,
+                 platforms: Optional[Sequence[str]] = None) -> dict:
+    """Export and write a serving artifact; returns its metadata.
+
+    One program per entry of ``platforms`` (``cuda``, ``cpu``; default
+    the model's own device type), each exported from the model's weights
+    on that device (a copy where it is not the model's), so the file
+    holds the weights once per platform. ``state``, if given, is
+    strict-loaded into ``model.net`` first."""
+    platforms = check_platforms(platforms or (model.device.type,))
+    if state is not None:
+        model.net.load_state_dict(state, strict=True)
+    programs = {p: export_inference(model_on(model, p),
+                                    batch_size=batch_size,
+                                    fused_nms=fused_nms,
+                                    uint8_input=uint8_input,
+                                    input_mean=input_mean)
+                for p in platforms}
     meta = serving_metadata(model, batch_size, fused_nms, uint8_input,
                             input_mean)
-    write_serving(path, program, meta)
-    return meta
+    return write_serving(path, programs, meta)
 
 
 class BucketGraph:
@@ -377,8 +440,9 @@ class BucketGraph:
 
 
 class ServingModel:
-    """A loaded artifact: ``serving(images) -> outputs`` as numpy, run
-    under ``inference_mode`` on the device the artifact was exported on.
+    """A loaded program of an artifact: ``serving(images) -> outputs`` as
+    numpy, run under ``inference_mode`` on the device the program was
+    exported for (``meta["device"]``).
     A call at a batch size ``warm_up`` captured replays its CUDA graph;
     any other runs the exported program eagerly. Calls are serialized."""
 
@@ -439,13 +503,17 @@ class ServingModel:
                 self.graphs[b] = BucketGraph(self.module, static_in, pool)
 
 
-def load_serving(path: str) -> ServingModel:
-    """Load an artifact written by ``save_serving``. Needs torch and
-    ``refinedet_tpu_torch.ops`` (imported by this module: it registers
-    the K1 and int8 ops the program calls), and no model class, checkpoint or
-    config. Raises for a file of the JAX package, and for a CUDA artifact
-    on a host without a card; never moves an artifact to another
-    device."""
+def load_serving(path: str, device: str = "cuda") -> ServingModel:
+    """Load the ``device`` program of an artifact written by
+    ``save_serving``. Needs torch and ``refinedet_tpu_torch.ops``
+    (imported by this module: it registers the K1 and int8 ops the
+    program calls), and no model class, checkpoint or config.
+
+    Raises for a file of the JAX package, for a file that holds no
+    program for ``device``'s type (naming the ones it holds), and for
+    ``cuda`` on a host without a card. It never takes another device's
+    program in place of the one asked for."""
+    want = torch.device(device)
     with open(path, "rb") as f:
         magic = f.read(len(MAGIC))
         if magic != MAGIC:
@@ -458,12 +526,21 @@ def load_serving(path: str) -> ServingModel:
                              f"artifact (magic {magic!r})")
         (hlen,) = struct.unpack("<I", f.read(4))
         meta = json.loads(f.read(hlen).decode("utf-8"))
-        blob = f.read()
-    device = torch.device(meta["device"])
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"{path} was exported on {device} and runs only there, but no "
-            "CUDA device is visible. An artifact runs on the device it was "
-            "exported on: export one with --device cpu to serve on the "
-            "CPU.")
+        if "platforms" not in meta:  # the first layout: one program
+            meta["platforms"] = [torch.device(meta.pop("device")).type]
+            meta["program_bytes"] = [None]
+        platforms = meta["platforms"]
+        if want.type not in platforms:
+            raise ValueError(
+                f"{path} holds programs for {platforms}, none for "
+                f"{want.type}: export one with --platforms "
+                f"{','.join(platforms + [want.type])}")
+        if want.type == "cuda":
+            resolve_device(want)
+            if want.index is None:
+                want = torch.device("cuda", torch.cuda.current_device())
+        i = platforms.index(want.type)
+        f.seek(sum(meta["program_bytes"][:i]), io.SEEK_CUR)
+        blob = f.read(meta["program_bytes"][i] or -1)
+    meta["device"] = str(want)
     return ServingModel(meta, torch.export.load(io.BytesIO(blob)))

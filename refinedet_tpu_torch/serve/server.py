@@ -401,8 +401,8 @@ def parse_args(argv=None):
     src.add_argument("--artifact",
                      help="a serving artifact from python -m "
                           "refinedet_tpu_torch.tools.export_serving; its "
-                          "metadata gives the input size, dtype, wire and "
-                          "device")
+                          "metadata gives the input size, dtype and wire; "
+                          "the program of --device answers")
     src.add_argument("--checkpoint",
                      help="a training checkpoint of the port, or a "
                           "reference-named .pth state_dict ('module.' "
@@ -410,12 +410,13 @@ def parse_args(argv=None):
     src.add_argument("--seed", type=int,
                      help="serve random weights drawn from this seed")
     # Model flags of --checkpoint/--seed; an artifact carries its own.
-    model_flags = {"size": 320, "num_classes": 21, "device": "cuda",
-                   "dtype": "float32"}
+    model_flags = {"size": 320, "num_classes": 21, "dtype": "float32"}
     p.add_argument("--size", type=int, choices=(320, 512),
                    help="default 320")
     p.add_argument("--num_classes", type=int, help="default 21")
-    p.add_argument("--device", help="default cuda")
+    p.add_argument("--device", default="cuda",
+                   help="the device that serves: the model's, or the "
+                        "artifact program's (default cuda)")
     p.add_argument("--dtype", choices=("float32", "bfloat16"),
                    help="default float32")
     p.add_argument("--port", type=int, default=8700)
@@ -468,7 +469,7 @@ def make_server(args) -> Server:
                                                   make_serving_fn)
 
     if args.artifact:
-        serving = load_serving(args.artifact)
+        serving = load_serving(args.artifact, device=args.device)
         meta, dtype = serving.meta, serving.input_dtype
     else:
         model = load_model(args)
@@ -495,9 +496,9 @@ def make_server(args) -> Server:
 def main(argv=None):
     """``python -m refinedet_tpu_torch.serve.server --artifact m.rdtpu``
 
-    Serves an artifact of ``tools/export_serving.py`` (on the device it
-    was exported on, one CUDA graph per bucket on the card), or
-    fused-NMS detections (``dets [C-1, 200, 5]`` per image) of a
+    Serves the ``--device`` program of an artifact of
+    ``tools/export_serving.py`` (one CUDA graph per bucket on the card),
+    or fused-NMS detections (``dets [C-1, 200, 5]`` per image) of a
     test-phase RefineDet built on ``--device`` (the card by default),
     with the weights of ``--checkpoint`` (a port training checkpoint or
     a reference-named ``.pth``) or drawn from ``--seed``.

@@ -153,7 +153,7 @@ def main(argv=None) -> dict:
         artifact = os.path.join(tmp, f"refinedet{args.size}.rdtpu")
         export_random(args, dev, artifact)
     try:
-        serving = load_serving(artifact)
+        serving = load_serving(artifact, device=str(dev))
     finally:
         if tmp is not None:
             shutil.rmtree(tmp, ignore_errors=True)

@@ -8,8 +8,11 @@ with its flags. Two targets, one CLI:
              whole inference function through ``torch.export``, weights
              inside, K1 as the op ``refinedet_tpu_torch::nms_sweep``; the
              serving host needs torch and ``refinedet_tpu_torch.ops``, no
-             model class. Symbolic batch by default. It runs on the device
-             it was exported on (``--device``, the card by default).
+             model class. Symbolic batch by default. One program per
+             ``--platforms`` entry (``cuda,cpu`` by default, as the JAX
+             exporter's ``tpu,cpu`` with the card for the TPU), each with
+             its own copy of the weights; the loader takes the one of the
+             device it is asked for.
   torch    — the reference-named ``state_dict`` as a ``.pth`` the reference
              nets strict-load (the EMA weights with ``--use_ema``).
 
@@ -44,7 +47,7 @@ import torch
 from refinedet_tpu_torch.eval.cli_coco import make_loader, quant_skip_arg
 from refinedet_tpu_torch.models import build_refinedet
 from refinedet_tpu_torch.quant.ptq import check_quantized_set
-from refinedet_tpu_torch.serve.export import save_serving
+from refinedet_tpu_torch.serve.export import check_platforms, save_serving
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -76,9 +79,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--batch_size", type=int, default=0,
                    help="serving: fixed batch; 0 = symbolic (any batch)")
     p.add_argument("--device", default="cuda",
-                   help="serving: the device the artifact is exported on "
-                        "and runs on (default the card; 'cpu' for a CPU "
-                        "artifact)")
+                   help="the device the checkpoint is loaded and checked "
+                        "on (default the card)")
+    p.add_argument("--platforms", default="cuda,cpu",
+                   help="serving: comma-separated device types to write a "
+                        "program for (cuda, cpu); the file holds the "
+                        "weights once per platform")
     p.add_argument("--fused_nms", action="store_true",
                    help="serving: decode + per-class NMS (K1 on the card) "
                         "+ compaction inside the artifact; output dets[b, "
@@ -111,6 +117,13 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.int8 and args.format == "torch":
         raise SystemExit("--int8 applies to --format serving only "
                          "(the reference stack has no int8 path)")
+    platforms = None
+    if args.format == "serving":
+        try:
+            platforms = check_platforms(
+                s.strip() for s in args.platforms.split(","))
+        except ValueError as e:
+            raise SystemExit(f"--platforms: {e}") from None
     state = make_loader(use_ema=args.use_ema)(args.checkpoint)
     if args.int8 and not any(k.endswith(".kernel_q") for k in state):
         raise SystemExit(
@@ -149,11 +162,12 @@ def main(argv: Optional[List[str]] = None) -> None:
         check_quantized_set(state, model, args.checkpoint)
     meta = save_serving(model, state, args.out,
                         batch_size=args.batch_size or None, fused_nms=fused,
-                        uint8_input=args.uint8_wire, input_mean=mean)
+                        uint8_input=args.uint8_wire, input_mean=mean,
+                        platforms=platforms)
     size = os.path.getsize(args.out)
     print(f"wrote serving artifact: {args.out} ({size / 1e6:.1f} MB)")
-    for k in ("input_size", "num_classes", "batch_size", "device", "dtype",
-              "int8"):
+    for k in ("input_size", "num_classes", "batch_size", "platforms",
+              "dtype", "int8"):
         print(f"  {k}: {meta[k]}")
 
 

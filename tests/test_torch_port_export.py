@@ -16,6 +16,7 @@ wide gaps, while the boxes and the ARM still run on the image.
 """
 
 import copy
+import importlib.util
 import json
 import struct
 import subprocess
@@ -88,7 +89,8 @@ def art(tmp_path_factory):
 
     fused = d / "fused.rdtpu"
     export_serving.main(["--checkpoint", str(pth), "--out", str(fused),
-                         "--device", "cpu", "--dtype", "float32",
+                         "--device", "cpu", "--platforms", "cpu",
+                         "--dtype", "float32",
                          "--num_classes", str(NUM_CLASSES), "--fused_nms"])
     model = build_refinedet("test", SIZE, NUM_CLASSES, device="cpu")
     raw = d / "raw.rdtpu"
@@ -104,7 +106,7 @@ def art(tmp_path_factory):
     return {"dir": d, "pth": pth, "state": state, "variables": variables,
             "model": model, "jmodel": jmodel, "jmeta": jmeta,
             "fused": fused, "raw": raw, "uint8": u8, "jax": jfused,
-            "serving": load_serving(str(fused)),
+            "serving": load_serving(str(fused), device="cpu"),
             "live": make_serving_fn(model, None, fused_nms={})}
 
 
@@ -150,7 +152,7 @@ def test_symbolic_batch_equals_live_function(art, batch):
 
 def test_raw_artifact_matches_apply(art):
     img = _images(5, 2)
-    boxes, scores = load_serving(str(art["raw"]))(img)
+    boxes, scores = load_serving(str(art["raw"]), device="cpu")(img)
     with torch.inference_mode():
         want_b, want_s = art["model"].apply(torch.from_numpy(img))
     assert boxes.shape == (2, PRIORS, 4)
@@ -163,7 +165,7 @@ def test_uint8_wire_exact_vs_f32(art):
     """Raw pixels, mean-subtracted inside the artifact by the reference
     means (BGR 104, 117, 123, reversed), equal the f32 path on the
     host-subtracted images."""
-    serving = load_serving(str(art["uint8"]))
+    serving = load_serving(str(art["uint8"]), device="cpu")
     assert serving.meta["input_dtype"] == "uint8"
     assert serving.meta["input_mean_bgr"] == [104.0, 117.0, 123.0]
     raw = np.random.RandomState(7).randint(0, 256, (2, SIZE, SIZE, 3)) \
@@ -174,7 +176,7 @@ def test_uint8_wire_exact_vs_f32(art):
 
 
 def test_fixed_batch_guard(art):
-    serving = load_serving(str(art["uint8"]))
+    serving = load_serving(str(art["uint8"]), device="cpu")
     assert serving.meta["batch_size"] == 2
     with pytest.raises(ValueError, match="exported for batch 2"):
         serving(np.zeros((1, SIZE, SIZE, 3), np.uint8))
@@ -216,9 +218,10 @@ def test_each_loader_refuses_the_other_package(art, tmp_path):
 
 def test_metadata_keys(art):
     meta = art["serving"].meta
-    want = (set(art["jmeta"]) - {"platforms", "jax_version"}) | \
-        {"device", "dtype", "torch_version", "quant_skip"}
+    want = (set(art["jmeta"]) - {"jax_version"}) | \
+        {"device", "dtype", "torch_version", "quant_skip", "program_bytes"}
     assert set(meta) == want and meta["quant_skip"] is None
+    assert meta["platforms"] == ["cpu"] and meta["program_bytes"][0] > 0
     assert meta["format"] == "refinedet-tpu-torch-serving"
     assert (meta["input_size"], meta["num_classes"], meta["use_bn"],
             meta["int8"]) == (SIZE, NUM_CLASSES, False, False)
@@ -230,14 +233,14 @@ def test_metadata_keys(art):
 
 
 def test_cuda_artifact_refused_without_card(art, tmp_path, monkeypatch):
-    """The loader never moves an artifact: one exported on the card needs
+    """The loader never moves a program: one exported for the card needs
     a card, and is refused before anything is deserialized."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     blob = art["fused"].read_bytes()
     n = len(port_export.MAGIC)
     (hlen,) = struct.unpack("<I", blob[n:n + 4])
     meta = json.loads(blob[n + 4:n + 4 + hlen])
-    meta["device"] = "cuda:0"
+    meta["platforms"] = ["cuda"]
     header = json.dumps(meta).encode()
     path = tmp_path / "cuda.rdtpu"
     path.write_bytes(blob[:n] + struct.pack("<I", len(header)) + header
@@ -246,11 +249,117 @@ def test_cuda_artifact_refused_without_card(art, tmp_path, monkeypatch):
         load_serving(str(path))
 
 
+def _rewrite_header(src, dst, edit):
+    """``src``'s artifact with its metadata passed through ``edit``."""
+    blob = src.read_bytes()
+    n = len(port_export.MAGIC)
+    (hlen,) = struct.unpack("<I", blob[n:n + 4])
+    meta = json.loads(blob[n + 4:n + 4 + hlen])
+    header = json.dumps(edit(meta)).encode()
+    dst.write_bytes(blob[:n] + struct.pack("<I", len(header)) + header
+                    + blob[n + 4 + hlen:])
+
+
+@pytest.mark.parametrize("case", ["default", "cpu", "tpu", "cuda_no_card",
+                                  "duplicate"])
+def test_platforms_flag(art, tmp_path, monkeypatch, case):
+    """``--platforms``: comma-separated ``cuda``/``cpu``, by default
+    ``cuda,cpu`` where the JAX exporter's default is ``tpu,cpu``; ``tpu``
+    is refused naming the JAX exporter, ``cuda`` without a card and a
+    repeated entry are refused."""
+    argv = ["--checkpoint", str(art["pth"]), "--out",
+            str(tmp_path / "p.rdtpu"), "--device", "cpu"]
+    if case == "default":
+        args = export_serving.parse_args(argv)
+        jax_default = jexport_cli_default()
+        assert jax_default == "tpu,cpu"
+        assert args.platforms == jax_default.replace("tpu", "cuda")
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        assert port_export.check_platforms(args.platforms.split(",")) == \
+            ("cuda", "cpu")
+        return
+    if case == "cpu":
+        args = export_serving.parse_args(argv + ["--platforms", "cpu"])
+        assert port_export.check_platforms(args.platforms.split(",")) == \
+            ("cpu",)
+        return
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    flag = {"tpu": "tpu,cpu", "cuda_no_card": "cuda,cpu",
+            "duplicate": "cpu,cpu"}[case]
+    if case == "cuda_no_card":
+        with pytest.raises(RuntimeError, match="no CUDA device is visible"):
+            export_serving.main(argv + ["--platforms", flag])
+        return
+    match = {"tpu": "written by the JAX package's exporter",
+             "duplicate": "distinct entries"}[case]
+    with pytest.raises(SystemExit, match=match):
+        export_serving.main(argv + ["--platforms", flag])
+    assert not (tmp_path / "p.rdtpu").exists()
+
+
+def jexport_cli_default():
+    """The JAX exporter's ``--platforms`` default, read from its
+    parser."""
+    spec = importlib.util.spec_from_file_location(
+        "jax_export_serving_cli", REPO / "tools" / "export_serving.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.parse_args(["--checkpoint", "c", "--out", "o"]).platforms
+
+
+def test_two_program_file_takes_the_program_asked_for(art, tmp_path,
+                                                      monkeypatch):
+    """A file of two programs: the loader reads the one of the device
+    asked for (here the second, the CPU's), never the other; a device
+    with no program, or ``cuda`` without a card, raises."""
+    raw = load_serving(str(art["raw"]), device="cpu").program
+    fused = art["serving"]
+    meta = dict(fused.meta)
+    del meta["device"], meta["platforms"], meta["program_bytes"]
+    path = tmp_path / "two.rdtpu"
+    # The raw-heads program stands in for the card's: it must not answer.
+    written = port_export.write_serving(
+        str(path), {"cuda": raw, "cpu": fused.program}, meta)
+    assert written["platforms"] == ["cuda", "cpu"]
+    serving = load_serving(str(path), device="cpu")
+    assert serving.meta["device"] == "cpu"
+    assert serving.meta["program_bytes"] == written["program_bytes"]
+    img = _images(12)
+    np.testing.assert_array_equal(serving(img), fused(img))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device is visible"):
+        load_serving(str(path))
+    cpu_only = tmp_path / "cpu_only.rdtpu"
+    _rewrite_header(art["fused"], cpu_only, lambda m: m)
+    with pytest.raises(ValueError, match=r"holds programs for \['cpu'\], "
+                       "none for cuda"):
+        load_serving(str(cpu_only))
+
+
+def test_first_layout_file_still_loads(art, tmp_path):
+    """A file of the first layout (one program, ``device`` and no
+    ``platforms``) loads for its device and equals the live function;
+    another device is refused."""
+    old = tmp_path / "first_layout.rdtpu"
+
+    def first_layout(meta):
+        del meta["platforms"], meta["program_bytes"]
+        return dict(meta, device="cpu")
+
+    _rewrite_header(art["fused"], old, first_layout)
+    serving = load_serving(str(old), device="cpu")
+    assert serving.meta["platforms"] == ["cpu"]
+    img = _images(13)
+    np.testing.assert_array_equal(serving(img), art["live"](img))
+    with pytest.raises(ValueError, match="none for cuda"):
+        load_serving(str(old), device="cuda")
+
+
 def test_load_serving_builds_no_model_class(art):
     code = (
         "import sys, numpy as np\n"
         "from refinedet_tpu_torch.serve.export import load_serving\n"
-        f"s = load_serving({str(art['fused'])!r})\n"
+        f"s = load_serving({str(art['fused'])!r}, device='cpu')\n"
         "out = s(np.zeros((1, 320, 320, 3), np.float32))\n"
         "assert out.shape == (1, 1, 200, 5), out.shape\n"
         "bad = [m for m in sys.modules if m.startswith("
@@ -271,6 +380,7 @@ def test_server_serves_the_cli_artifact(art):
         port_server.parse_args(["--artifact", str(art["fused"]),
                                 "--size", "512"])
     args = port_server.parse_args(["--artifact", str(art["fused"]),
+                                   "--device", "cpu",
                                    "--port", "0", "--max_batch", "2",
                                    "--max_delay_ms", "50"])
     srv = port_server.make_server(args)
@@ -364,10 +474,11 @@ def test_int8_artifact_round_trip(art, int8_pth, tmp_path):
     path, model_q = int8_pth
     out = tmp_path / "int8.rdtpu"
     export_serving.main(["--int8", "--checkpoint", str(path), "--out",
-                         str(out), "--device", "cpu", "--dtype", "float32",
+                         str(out), "--device", "cpu", "--platforms", "cpu",
+                         "--dtype", "float32",
                          "--num_classes", str(NUM_CLASSES), "--fused_nms",
                          "--quant_skip", ",".join(HIRES_SKIP)])
-    serving = load_serving(str(out))
+    serving = load_serving(str(out), device="cpu")
     assert serving.meta["int8"] is True
     assert serving.meta["quant_skip"] == list(HIRES_SKIP)
     targets = [str(node.target)
@@ -383,7 +494,8 @@ def test_int8_artifact_round_trip(art, int8_pth, tmp_path):
     assert got.shape == (1, NUM_CLASSES - 1, 200, 5)
     np.testing.assert_array_equal(got, want)
     srv = port_server.make_server(port_server.parse_args(
-        ["--artifact", str(out), "--port", "0", "--max_batch", "1"]))
+        ["--artifact", str(out), "--device", "cpu", "--port", "0",
+         "--max_batch", "1"]))
     with srv:
         (dets,) = srv.engine.submit(imgs[0]).result(timeout=120)
     np.testing.assert_array_equal(dets, got[0])
@@ -397,7 +509,8 @@ def test_int8_refusals(art, int8_pth, tmp_path, case):
     ``--format torch``."""
     ckpt = art["pth"] if case == "unquantized" else int8_pth[0]
     argv = ["--int8", "--checkpoint", str(ckpt), "--out",
-            str(tmp_path / "q.rdtpu"), "--device", "cpu"]
+            str(tmp_path / "q.rdtpu"), "--device", "cpu", "--platforms",
+            "cpu"]
     if case == "quant_skip":  # the default skip against HIRES_SKIP
         with pytest.raises(ValueError, match="different --quant_skip"):
             export_serving.main(argv)

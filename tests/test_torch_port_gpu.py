@@ -16,7 +16,10 @@ per replay, no host sync), and data parallelism at world size 1 (NCCL
 chosen on the card; the grouped step, DDP with the all-reduced N and the
 synced BN, equal to the ungrouped one), and the trained-fixture tools
 (the fixture built on the card, the shared training core for 3 steps and
-its AP through K1, ``bench_serve`` with 8 requests).
+its AP through K1, ``bench_serve`` with 8 requests), the artifact's two
+programs (the card's and the CPU's, each exact on its device), the
+on-device ``soft_nms`` against the CPU (no host sync), and
+``profile_trace`` seeing one K1 launch under its op.
 
 They skip without a CUDA card. On the card::
 
@@ -48,7 +51,7 @@ from refinedet_tpu_torch.eval import evaluator as evaluator_module
 from refinedet_tpu_torch.eval.evaluator import eval_postprocess
 from refinedet_tpu_torch.models import build_refinedet, build_refinedet_bn
 from refinedet_tpu_torch.ops import int8_conv, nms_cuda, nms_native
-from refinedet_tpu_torch.ops.nms import nms_sweep_reference
+from refinedet_tpu_torch.ops.nms import nms_sweep_reference, soft_nms
 from refinedet_tpu_torch.parallel import distributed
 from refinedet_tpu_torch.losses import refinedet_multibox_loss
 from refinedet_tpu_torch.quant import DEFAULT_QUANT_SKIP, quantize_variables
@@ -56,7 +59,7 @@ from refinedet_tpu_torch.serve.export import (ServingModel,
                                               fused_nms_settings,
                                               fused_postprocess,
                                               load_serving, make_serving_fn,
-                                              save_serving)
+                                              model_on, save_serving)
 from refinedet_tpu_torch.tools import bench_serve, fixture_train, int8_bench
 from refinedet_tpu_torch.tools.fixtures import coco_fixture
 from refinedet_tpu_torch.tools.eval_check import (SyntheticSSDD,
@@ -70,6 +73,8 @@ from refinedet_tpu_torch.tools.train_check import (SyntheticDetection,
                                                    update_rel_errors)
 from refinedet_tpu_torch.train import (Trainer, create_train_state,
                                        make_optimizer, make_train_step)
+from refinedet_tpu_torch.utils.timer import profile_trace, step_annotation
+from refinedet_tpu_torch.utils.trace_summary import trace_stats
 
 pytestmark = pytest.mark.gpu
 
@@ -523,18 +528,35 @@ def test_nms_native_on_the_card_host(cuda):
 
 @pytest.fixture(scope="module")
 def card_artifact(tmp_path_factory):
-    """RefineDet320 (VOC, 21 classes) in bf16, exported on the card with
-    fused NMS and a symbolic batch, written and loaded back."""
+    """RefineDet320 (VOC, 21 classes) in bf16, exported with fused NMS and
+    a symbolic batch for the card and the CPU into one file, written, and
+    its card program loaded back."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cudnn.allow_tf32 = False
     model = build_refinedet("test", 320, 21, dtype=torch.bfloat16,
                             device="cuda", seed=0)
     path = tmp_path_factory.mktemp("artifact") / "refinedet320.rdtpu"
-    meta = save_serving(model, None, str(path), fused_nms={})
-    assert meta["device"] == "cuda:0" and meta["dtype"] == "bfloat16"
-    return model, make_serving_fn(model, None, fused_nms={}), \
-        load_serving(str(path))
+    meta = save_serving(model, None, str(path), fused_nms={},
+                        platforms=("cuda", "cpu"))
+    assert meta["platforms"] == ["cuda", "cpu"]
+    assert meta["dtype"] == "bfloat16"
+    loaded = load_serving(str(path))
+    assert loaded.meta["device"] == "cuda:0"
+    return model, make_serving_fn(model, None, fused_nms={}), loaded, path
+
+
+def test_two_program_artifact_cpu_program(card_artifact):
+    """The same file's CPU program equals the live function of the
+    model's CPU copy exactly; the card's model is not moved."""
+    model, _, _, path = card_artifact
+    host = load_serving(str(path), device="cpu")
+    assert host.meta["device"] == "cpu"
+    assert model.priors.is_cuda and next(model.net.parameters()).is_cuda
+    imgs = _noise(2, 1)
+    np.testing.assert_array_equal(
+        host(imgs), make_serving_fn(model_on(model, "cpu"), None,
+                                    fused_nms={})(imgs))
 
 
 def _noise(seed, b):
@@ -544,7 +566,7 @@ def _noise(seed, b):
 
 @pytest.mark.parametrize("batch", [1, 5])
 def test_cuda_artifact_matches_live(card_artifact, batch):
-    _, live, serving = card_artifact
+    _, live, serving, _ = card_artifact
     imgs = _noise(batch, batch)
     before = nms_cuda.nms_sweep.launches
     got = serving(imgs)
@@ -557,7 +579,7 @@ def test_cuda_artifact_matches_live(card_artifact, batch):
 def test_bucket_graphs_replay_eager_and_count_k1(card_artifact):
     """Each bucket's graph replay equals the eager program exactly, and
     adds one K1 launch, which the capture itself did not count."""
-    _, _, loaded = card_artifact
+    _, _, loaded, _ = card_artifact
     serving = ServingModel(loaded.meta, loaded.program)
     buckets = (1, 2, 4, 8)
     captured = nms_cuda.nms_sweep.captured
@@ -580,7 +602,7 @@ def test_bucket_graphs_replay_eager_and_count_k1(card_artifact):
 def test_fused_artifact_never_syncs(card_artifact):
     """The exported program (forward, post-process, K1) makes no blocking
     copy and no synchronization, so it can be captured in a graph."""
-    _, _, serving = card_artifact
+    _, _, serving, _ = card_artifact
     x = torch.from_numpy(_noise(3, 4)).cuda()
     with torch.inference_mode():
         serving.module(x)  # warm-up: cuDNN plans of this shape
@@ -857,3 +879,55 @@ def test_bench_serve_on_the_card(cuda):
     for leg in out["results"].values():
         assert leg["errors"] == 0 and leg["ok"] == 8
     assert out["fused_nms"] and out["launches"]["nms_sweep"] >= 3
+
+
+# -- soft-NMS on the card, and the profiler -------------------------------------
+
+def _soft_set(seed, n=200):
+    rng = np.random.RandomState(seed)
+    xy = rng.uniform(0, 240, (n, 2))
+    wh = rng.uniform(8, 60, (n, 2))
+    boxes = np.concatenate([xy, xy + wh], 1).astype(np.float32)
+    return torch.from_numpy(boxes), torch.from_numpy(
+        rng.uniform(0.01, 1.0, n).astype(np.float32))
+
+
+@pytest.mark.parametrize("method", ["linear", "gaussian", "hard"])
+def test_soft_nms_on_the_card_matches_the_cpu(cuda, method):
+    """Indices and keep equal the CPU's exactly; scores bitwise for linear
+    and hard, within 20 ulps for gaussian (the card's exp is not the
+    CPU's); the rounds make no host sync."""
+    boxes, scores = _soft_set(1)
+    want = soft_nms(boxes, scores, method=method)
+    b, s = boxes.to(cuda), scores.to(cuda)
+    soft_nms(b, s, method=method)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = soft_nms(b, s, method=method)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got.indices.cpu(), want.indices)
+    assert torch.equal(got.keep.cpu(), want.keep)
+    a, w = got.scores.cpu().numpy(), want.scores.numpy()
+    ulps = np.abs(a.view(np.int32).astype(np.int64)
+                  - w.view(np.int32).astype(np.int64)).max()
+    assert ulps <= (20 if method == "gaussian" else 0)
+
+
+def test_profile_trace_sees_one_k1_launch(cuda, tmp_path):
+    """One K1 launch under ``profile_trace``: the trace's summary finds
+    its kernel under the op ``refinedet_tpu_torch::nms_sweep``, inside
+    the annotated execution."""
+    boxes, valid = _candidates(np.random.RandomState(0), 64, 200, 1.0)
+    boxes, valid = boxes.to(cuda), valid.to(cuda)
+    nms_cuda.nms_sweep(boxes, valid, 0.45)  # build and warm up
+    before = nms_cuda.nms_sweep.launches
+    with profile_trace(str(tmp_path)):
+        with step_annotation("k1"):
+            nms_cuda.nms_sweep(boxes, valid, 0.45)
+    assert nms_cuda.nms_sweep.launches == before + 1
+    stats = trace_stats(str(tmp_path))
+    assert stats["handwritten_calls"] == {"nms_sweep (K1)": 1}
+    assert stats["categories_ms"]["nms_sweep (K1)"] > 0
+    assert [x["name"] for x in stats["executions"]] == ["k1"]

@@ -1,6 +1,6 @@
-"""Port parity: the RefineDet network, the weight converter and the
-post-processors of ``refinedet_tpu_torch`` against the JAX package's, on
-the CPU at 320 with 3 classes and batch 1."""
+"""Port parity: the RefineDet network, the weight converter, the
+initializers and the post-processors of ``refinedet_tpu_torch`` against
+the JAX package's, on the CPU at 320 with 3 classes and batch 1."""
 
 import sys
 from pathlib import Path
@@ -15,10 +15,14 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from refinedet_tpu.config import DetectConfig as JDetectConfig  # noqa: E402
+from refinedet_tpu.models import initializers as jinit  # noqa: E402
 from refinedet_tpu.detect import detection as jdet  # noqa: E402
 from refinedet_tpu.models import build_refinedet as jbuild  # noqa: E402
+from refinedet_tpu.models import build_refinedet_bn as jbuild_bn  # noqa: E402
 from refinedet_tpu.models.torch_export import \
     flax_to_torch_state_dict  # noqa: E402
+from refinedet_tpu.models.torch_import import (  # noqa: E402
+    torch_state_dict_to_flax, torch_state_dict_to_flax_bn)
 from refinedet_tpu.ops.dispatch import \
     class_parallel_nms as jclass_parallel_nms  # noqa: E402
 
@@ -26,6 +30,7 @@ from refinedet_tpu_torch.config import DetectConfig  # noqa: E402
 from refinedet_tpu_torch.detect import detection as det  # noqa: E402
 from refinedet_tpu_torch.models import (build_refinedet,  # noqa: E402
                                         state_dict_from_flax)
+from refinedet_tpu_torch.models import initializers  # noqa: E402
 from refinedet_tpu_torch.serve.export import (fused_nms_settings,  # noqa: E402
                                               fused_postprocess)
 
@@ -186,3 +191,96 @@ def test_postprocess_on_identical_heads(pair, heads):
     want = np.asarray(jnp.concatenate([bx, sc[..., None]], axis=-1))
     assert got.shape == (1, NUM_CLASSES - 1, 200, 5)
     _assert_rows_equal(got, want, score_col=4)
+
+
+@pytest.mark.parametrize("call", [
+    ("constant_init", ((3, 3, 4, 8), 0.5, 0.1)),
+    ("xavier_init", ((3, 3, 4, 8),), {"gain": 2.0}),
+    ("xavier_init", ((2, 2, 6, 6),), {"distribution": "uniform"}),
+    ("normal_init", ((5, 7),), {"mean": 1.0, "std": 0.01}),
+    ("uniform_init", ((3, 3, 2, 4),), {"a": -1.0, "b": 2.0}),
+    ("kaiming_init", ((3, 3, 4, 8),), {}),
+    ("kaiming_init", ((1, 1, 16, 4),), {"mode": "fan_in", "a": 0.1,
+                                        "nonlinearity": "leaky_relu",
+                                        "distribution": "uniform"}),
+    ("_fans", ((7,),)), ("_fans", ((3, 5),)), ("_fans", ((3, 3, 4, 8),))],
+    ids=lambda c: c[0])
+def test_initializers_draw_as_jax(call):
+    """Each helper bitwise equal to JAX's from the same RandomState."""
+    name, args, kwargs = (*call, {})[:3]
+    rng_args = () if name in ("constant_init", "_fans") else None
+    out = []
+    for mod in (initializers, jinit):
+        fn = getattr(mod, name)
+        extra = rng_args if rng_args is not None else \
+            (np.random.RandomState(7),)
+        out.append(fn(*extra, *args, **kwargs))
+    got, want = out
+    if isinstance(want, dict):
+        assert got.keys() == want.keys()
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
+    else:
+        assert np.asarray(got).dtype == np.asarray(want).dtype
+        np.testing.assert_array_equal(got, want)
+
+
+def test_torch_layout_matches_the_converter():
+    k = np.random.RandomState(0).randn(2, 2, 3, 5).astype(np.float32)
+    conv = initializers.torch_layout(k)
+    assert conv.shape == (5, 3, 2, 2)
+    np.testing.assert_array_equal(conv.numpy()[4, 2, 1, 0], k[1, 0, 2, 4])
+    deconv = initializers.torch_layout(k, transposed=True)
+    assert deconv.shape == (3, 5, 2, 2)  # mirrored: [in, out, kh, kw]
+    np.testing.assert_array_equal(deconv.numpy()[2, 4, 1, 0], k[0, 1, 2, 4])
+
+
+def _flax_init_order(jmodel):
+    """The names of JAX's params dict in its init's own order, read while
+    ``jax.eval_shape`` traces the init (no FLOPs)."""
+    order = []
+
+    def init(rng, x):
+        variables = jmodel.module.init(rng, x, train=False)
+        order.extend(variables["params"].keys())
+        return variables
+
+    jax.eval_shape(init, jax.random.PRNGKey(0),
+                   jnp.zeros((1, 128, 128, 3), jnp.float32))
+    return order
+
+
+@pytest.mark.parametrize("use_bn", [False, True], ids=["plain", "bn"])
+def test_reinit_heads_xavier_matches_jax(use_bn):
+    """``reinit_heads_xavier`` on the port's net equals JAX's on a params
+    dict of the same weights in its init's order, after
+    ``state_dict_from_flax``, bitwise; the trunk and L2Norms untouched.
+    The order the port draws in is the order JAX's init creates the
+    layers."""
+    model = build_refinedet("train", 320, NUM_CLASSES, use_bn=use_bn,
+                            device="cpu", seed=5)
+    before = {k: v.clone() for k, v in model.net.state_dict().items()}
+    jmodel = (jbuild_bn if use_bn else jbuild)("train", 320, NUM_CLASSES)
+    order = _flax_init_order(jmodel)
+    skip = ("vgg_", "L2Norm")
+    assert [n for n in order if not n.startswith(skip)
+            and n in initializers.head_init_order(use_bn)] == \
+        initializers.head_init_order(use_bn)
+    if use_bn:
+        variables = torch_state_dict_to_flax_bn(before)
+    else:
+        variables = {"params": torch_state_dict_to_flax(before)}
+    params = {n: variables["params"][n] for n in order}
+    jparams = jinit.reinit_heads_xavier(params, seed=11)
+    want = state_dict_from_flax(dict(variables, params=jparams))
+    initializers.reinit_heads_xavier(model.net, seed=11)
+    got = model.net.state_dict()
+    assert set(got) == set(want)
+    moved = 0
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+        moved += not torch.equal(v, before[k])
+        if k.startswith(("vgg.", "L2Norm")):
+            assert torch.equal(got[k], before[k]), k
+    # One weight per conv moves; the biases were zero already.
+    assert moved == len(initializers.head_init_order(use_bn))

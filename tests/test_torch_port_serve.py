@@ -193,7 +193,12 @@ def test_port_imports_no_jax():
     pkg = REPO / "refinedet_tpu_torch"
     assert {pkg / "quant" / "ptq.py", pkg / "quant" / "gptq.py",
             pkg / "quant" / "__init__.py", pkg / "ops" / "int8_conv.py",
-            pkg / "ops" / "cuda_build.py"} <= set(files)
+            pkg / "ops" / "cuda_build.py", pkg / "utils" / "timer.py",
+            pkg / "utils" / "trace_summary.py",
+            pkg / "models" / "initializers.py"} | {
+        pkg / "tools" / f"{t}.py" for t in (
+            "trace_infer", "trace_train_step", "profile_train_step",
+            "flops_train_step")} <= set(files)
     for path in files:
         for name in _imports(path):
             root = name.split(".")[0]

@@ -60,7 +60,8 @@ from refinedet_tpu_torch.tools.fixtures import (coco_draws,  # noqa: E402
 
 TOOLS = ("smoke_e2e", "smoke_multiclass", "smoke_int8", "ablate_int8",
          "calib_study", "ablate_ema", "bench_serve", "bench_int8",
-         "int8_witness")
+         "int8_witness", "trace_infer", "trace_train_step",
+         "profile_train_step", "flops_train_step")
 
 
 def _jax_tool(name):
