@@ -216,7 +216,29 @@ non-zero exit and no result line:
      line); (f) ``ops/nms.py:soft_nms`` on the card, linear, gaussian and
      hard on a seeded K = 200 set: indices and keep equal the CPU's and
      the kept set the host ``nms_native.soft_nms``'s, scores bitwise
-     (gaussian within 20 ulps), ms a call and kernel launches a call.
+     (gaussian within 20 ulps), ms a call and kernel launches a call;
+ 15. spatial sharding (``--spatial_shards``, ``parallel/spatial.py``),
+     gloo ranks sharing the card (``tools/ddp_check.py``) against a
+     reference process without a group: (a) two ranks at S = 2, each a
+     band of every image's rows: 3 f32 steps of RefineDet320 at global
+     batch 4 (12b's limits: the ranks bitwise equal, the JAX package's
+     multi-process parameter limits, updates 2e-2, losses 1e-5) and one
+     float64 step of RefineDet896-BN, 2 classes, five sources, batch 2
+     (running statistics and updates 1e-9 relative, the float32 L2Norm
+     scales 1e-6); (b) four ranks, data 2 x space 2: one f32 step of
+     RefineDet320 at global batch 4 (12b's limits), and one with the
+     on-device augmentation (staging 640) on the same draws, in f32
+     (its updates printed, not held: cuDNN rounds a band's and the whole
+     image's conv-bias gradients 3e-2 apart on these inputs) and in
+     float64 (updates 1e-9), each against one process; (c) ``Trainer`` at S = 2 over two ranks, RefineDet320
+     bf16, 3 steps into a temporary folder: every loss finite, rank 0's
+     checkpoint, and a fresh Trainer on each rank resuming rank 0's state
+     bitwise; (d) beside the card's name and power limit: each rank's
+     peak memory in a bf16 RefineDet896-BN step at batch 8 at S = 2
+     against one process's at batch 8, the halo and gather bytes a rank
+     hands ``all_reduce`` a step, and the gloo step's host ms (a
+     correctness run through the host, not a scaling figure). No
+     hand-written kernel may launch in the phase.
 
 The line before the last is the card's name and power limit from
 nvidia-smi; the last is {"ok": true, "device": {...}}. TF32 is off for
@@ -288,6 +310,11 @@ SOFT_NMS_ULPS = {"linear": 0, "gaussian": 20, "hard": 0}
 DDP_GLOBAL_BATCH = 4      # 12b: 2 gloo ranks x 2 rows on the one card
 DDP_STEPS = 3             # 12b: f32 steps of RefineDet320
 DDP_LR, DDP_CLIP = 1e-5, 5.0  # 12b: the JAX package's multi-process test's
+SPATIAL_SHARDS = 2        # 15: image rows over 2 space ranks
+SPATIAL_BN_BATCH = 2      # 15a: RefineDet896-BN, float64
+SPATIAL_MEM_STEPS = 2     # 15d: bf16 896-BN steps at BN_BATCH
+SPATIAL_TRAINER_BATCH = 8  # 15c
+SPATIAL_TRAINER_STEPS = 3  # 15c: one step an epoch
 # 11a: kernels against plain, 320 set: every engine bucket up to 32 (13c)
 INT8_CHECK_BATCHES = (1, 2, 4, 8, 16, 32)
 INT8_CHECK_512_BATCH = 8      # 11a: the 512 set (SSDD eval) at this batch
@@ -2547,6 +2574,209 @@ def profile_phase(dev: torch.device, smi: str, rng) -> tuple:
     return out, launched
 
 
+def spatial_phase(dev: torch.device, smi: str) -> dict:
+    """Phase 15: spatial sharding (``--spatial_shards``) on the card, gloo
+    ranks sharing it; no hand-written kernel may launch."""
+    from refinedet_tpu_torch.models import RefineDet
+    from refinedet_tpu_torch.tools import ddp_check
+    from refinedet_tpu_torch.tools.train_check import (biases_before_bn,
+                                                       update_rel_errors)
+
+    out = {"card": smi}
+    sp = SPATIAL_SHARDS
+
+    def spatial(job):
+        return {**job, "spatial_shards": sp}
+
+    def ranks_equal(results, n, name):
+        got = [results[f"rank{i}"][name] for i in range(n)]
+        check(all(g["digest"] == got[0]["digest"]
+                  and g["metrics"] == got[0]["metrics"] for g in got),
+              f"15: the ranks' {name} states differ")
+
+    def plain_close(label, got, want, steps, limit=2e-2):
+        """The ranks' state against one process's: losses, the JAX
+        package's multi-process parameter limits, each update within
+        ``limit`` (the float32 L2Norm scales 1e-6 when it is tighter);
+        ``limit`` None prints the updates' error without holding it."""
+        loss_err = max(abs(g[k] - w[k]) / abs(w[k])
+                       for g, w in zip(got["metrics"], want["metrics"])
+                       for k in LOSS_KEYS)
+        g, w = got["saved"][steps], want["saved"][steps]
+        sums, heads = ddp_check.summary_errors(g["params"], w["params"])
+        rel = update_rel_errors(g["momentum"], w["momentum"])
+        l2 = max(v for k, v in rel.items() if "L2Norm" in k)
+        worst = max((k for k in rel if "L2Norm" not in k), key=rel.get)
+        held = "not held" if limit is None else f"limit {limit:g}"
+        log("spatial", f"{label}: ranks bitwise equal; against one "
+            f"process: worst loss rel err {loss_err:.3g} (limit 1e-5), "
+            f"parameters' sums {sums:.3g} (limit 1e-6) and first elements "
+            f"{heads:.3g} (limit 1e-5), worst update (momentum) rel L2 err "
+            f"{rel[worst]:.3g} ({worst}; {held}), the L2Norm scales "
+            f"{l2:.3g}")
+        check(loss_err <= 1e-5 and sums <= 1e-6 and heads <= 1e-5
+              and (limit is None or (rel[worst] <= limit
+                                     and l2 <= max(limit, 1e-6))),
+              f"{label}: differs from one process")
+        return {"loss_rel_err": loss_err, "param_sums_err": sums,
+                "param_heads_err": heads, "update_rel_err": rel[worst],
+                "l2norm_rel_err": l2}
+
+    plain = dict(kind="steps", name="plain", size=SIZE, classes=NUM_CLASSES,
+                 batch=DDP_GLOBAL_BATCH, steps=DDP_STEPS, lr=DDP_LR,
+                 clip=DDP_CLIP, save=(DDP_STEPS,))
+    bn = dict(kind="steps", name="bn896", size=BN_SIZE, classes=2, bn=True,
+              dtype="float64", batch=SPATIAL_BN_BATCH, steps=1, lr=DDP_LR,
+              data_seed=11, save=(1,))
+    mem = dict(kind="steps", name="mem896", size=BN_SIZE, classes=2,
+               bn=True, dtype="bfloat16", batch=BN_BATCH,
+               steps=SPATIAL_MEM_STEPS, lr=DDP_LR, clip=TRAIN_CLIP,
+               data_seed=21)
+    one = {**plain, "steps": 1, "save": (1,)}
+    augmented = {**one, "name": "augmented", "staging": STAGING}
+    augmented64 = {**augmented, "name": "augmented64", "dtype": "float64"}
+    with tempfile.TemporaryDirectory() as folder:
+        trainer = dict(kind="trainer", name="trainer", size=SIZE,
+                       classes=NUM_CLASSES, dtype="bfloat16",
+                       batch=SPATIAL_TRAINER_BATCH,
+                       steps=SPATIAL_TRAINER_STEPS, lr=1e-3,
+                       clip=TRAIN_CLIP, spatial_shards=sp,
+                       checkpoint=os.path.join(folder, "trainer"))
+        runs = {}
+        for label, n, rank_jobs, refs, threads in (
+                ("15a/c", sp, [spatial(mem), spatial(plain), spatial(bn),
+                               trainer], [mem, plain, bn], 2),
+                ("15b", 2 * sp, [spatial(one), spatial(augmented),
+                                 spatial(augmented64)],
+                 [one, augmented, augmented64], 1)):
+            sub = os.path.join(folder, label.replace("/", ""))
+            os.mkdir(sub)
+            t0 = time.perf_counter()
+            runs[label] = ddp_check.start(
+                n, rank_jobs, [refs], sub, backend="gloo", device="cuda:0",
+                threads=threads).results(600)
+            log("spatial", f"{label}: {n} gloo ranks (data "
+                f"{n // sp} x space {sp}) and 1 reference process on "
+                f"{torch.cuda.get_device_name(0)}, spawned, ran in "
+                f"{time.perf_counter() - t0:.1f} s")
+    a, b = runs["15a/c"], runs["15b"]
+    ref = a["reference0"]
+
+    # -- 15a. two ranks, S = 2, against one process -------------------------
+    for name in ("plain", "bn896"):
+        ranks_equal(a, sp, name)
+    out["plain"] = plain_close(
+        f"15a: RefineDet{SIZE} f32 (TF32 off), S = {sp}, {DDP_STEPS} steps "
+        f"at global batch {DDP_GLOBAL_BATCH}, lr {DDP_LR}, clip {DDP_CLIP}",
+        a["rank0"]["plain"], ref["plain"], DDP_STEPS)
+    got, want = a["rank0"]["bn896"], ref["bn896"]
+    g, w = got["saved"][1], want["saved"][1]
+    stats = [k for k in w["buffers"] if ".running_" in k]
+    stats_err = max(float((g["buffers"][k] - w["buffers"][k]).abs().max()
+                          / w["buffers"][k].abs().max()) for k in stats)
+    with torch.device("meta"):
+        net = RefineDet(2, BN_SIZE, use_bn=True)
+    l2 = {k for k in w["momentum"] if "L2Norm" in k}
+    skip = biases_before_bn(net) | l2
+    rel = update_rel_errors(g["momentum"], {
+        k: v for k, v in w["momentum"].items() if k not in skip})
+    rel_l2 = update_rel_errors(g["momentum"],
+                               {k: w["momentum"][k] for k in l2})
+    worst = max(rel, key=rel.get)
+    loss_err = max(abs(got["metrics"][0][k] - want["metrics"][0][k])
+                   / abs(want["metrics"][0][k]) for k in LOSS_KEYS)
+    log("spatial", f"15a: RefineDet{BN_SIZE}-BN f64, 2 classes, "
+        f"{len(net.arm_loc)} sources, S = {sp}, one step at batch "
+        f"{SPATIAL_BN_BATCH}: ranks "
+        f"bitwise equal; against one process: {len(stats)} running "
+        f"statistics worst {stats_err:.3g} of their largest (limit 1e-9), "
+        f"worst update rel L2 err {rel[worst]:.3g} ({worst}; limit 1e-9), "
+        f"the L2Norm scales (float32) {max(rel_l2.values()):.3g} (limit "
+        f"1e-6), worst loss rel err {loss_err:.3g} (float32 heads; limit "
+        f"1e-5)")
+    check(len(stats) == 34 and stats_err <= 1e-9 and rel[worst] <= 1e-9
+          and len(l2) == (3 if BN_SIZE == 896 else 2)
+          and max(rel_l2.values()) <= 1e-6
+          and loss_err <= 1e-5, "15a: the 896-BN step differs from one "
+          "process's")
+    out["bn896"] = {"running_stats_err": stats_err,
+                    "update_rel_err": rel[worst],
+                    "l2norm_rel_err": max(rel_l2.values()),
+                    "loss_rel_err": loss_err}
+
+    # -- 15b. four ranks, data 2 x space 2 -----------------------------------
+    # The augmented step in f32 is printed, not held: on these image-like
+    # inputs the conv biases' gradients cancel down to ~2e-4 of norm, and
+    # cuDNN's algorithms for a band's shape and the whole image's round
+    # them 3e-2 apart. In float64, as 8a compares card and CPU, the same
+    # step agrees to ~1e-14 and is held to 1e-9.
+    aug = f"on-device augmentation, staging {STAGING}"
+    for name, label, limit in (("plain", "f32, plain", 2e-2),
+                               ("augmented", f"f32, {aug}", None),
+                               ("augmented64", f"float64, {aug}", 1e-9)):
+        ranks_equal(b, 2 * sp, name)
+        out[f"grid_{name}"] = plain_close(
+            f"15b: RefineDet{SIZE} {label}, data 2 x space {sp}, one step "
+            f"at global batch {DDP_GLOBAL_BATCH}",
+            b["rank0"][name], b["reference0"][name], 1, limit)
+
+    # -- 15c. the Trainer at S = 2, then resume -----------------------------
+    r0, r1 = a["rank0"]["trainer"], a["rank1"]["trainer"]
+    losses = r0["losses"]
+    log("spatial", f"15c: Trainer, RefineDet{SIZE} bf16, S = {sp} over 2 "
+        f"ranks, batch {SPATIAL_TRAINER_BATCH}, {SPATIAL_TRAINER_STEPS} "
+        f"steps: losses {[round(v, 4) for v in losses]}; rank 0's final "
+        f"checkpoint written: {r0['checkpoint']}; resumed on both ranks: "
+        f"step {r0['step']} / {r1['step']}, states equal to the trained "
+        f"one: {r0['resumed'] == r1['resumed'] == r0['digest']}")
+    check(len(losses) == SPATIAL_TRAINER_STEPS
+          and all(np.isfinite(losses)) and r1["losses"] == []
+          and r0["checkpoint"] and r0["digest"] == r1["digest"]
+          and r0["resumed"] == r1["resumed"] == r0["digest"]
+          and r0["step"] == r1["step"] == SPATIAL_TRAINER_STEPS,
+          "15c: the spatial Trainer or its resume failed")
+    out["trainer_losses"] = losses
+
+    # -- 15d. what spatial sharding buys, and what it moves ------------------
+    launched = {}
+    for results in (a, b):
+        for jobs in results.values():
+            for job in jobs.values():
+                for k, v in job.get("launches", {}).items():
+                    launched[k] = launched.get(k, 0) + v
+    check(set(launched) == {"nms_sweep", "int8_conv", "int8_quantize"}
+          and not any(launched.values()),
+          f"15: hand-written kernels launched: {launched}")
+    gib = 2.0 ** 30
+    peaks = [a[f"rank{i}"]["mem896"]["peak_bytes"] / gib for i in range(sp)]
+    one_peak = ref["mem896"]["peak_bytes"] / gib
+    traffic = {name: a["rank0"][name]["traffic"]
+               for name in ("mem896", "plain", "bn896")}
+    log("spatial", f"15d: {smi}: RefineDet{BN_SIZE}-BN bf16 step at batch "
+        f"{BN_BATCH}: peak memory {[round(v, 3) for v in peaks]} GiB a rank "
+        f"at S = {sp} against {one_peak:.3f} GiB in one process")
+    for name, t in traffic.items():
+        log("spatial", f"15d: {smi}: {name} (S = {sp}): bytes a rank hands "
+            f"all_reduce a step, forward and backward: halo {t['halo']}, "
+            f"gather {t['gather']}")
+    log("spatial", f"15d: {smi}: the 2-rank gloo step through the host, a "
+        f"correctness run and not a scaling figure: RefineDet{SIZE} f32 at "
+        f"S = {sp} {[round(v, 2) for v in a['rank0']['plain']['ms']]} ms, "
+        f"one process {[round(v, 2) for v in ref['plain']['ms']]} ms; "
+        f"RefineDet{BN_SIZE}-BN bf16 at batch {BN_BATCH} "
+        f"{[round(v, 2) for v in a['rank0']['mem896']['ms']]} ms, one "
+        f"process {[round(v, 2) for v in ref['mem896']['ms']]} ms (host "
+        f"clock, synchronised); hand-written kernel launches in the "
+        f"phase: {launched}")
+    out.update(peak_gib=peaks, one_process_peak_gib=one_peak,
+               traffic=traffic, launches=launched,
+               step_ms=a["rank0"]["plain"]["ms"],
+               reference_step_ms=ref["plain"]["ms"],
+               mem896_step_ms=a["rank0"]["mem896"]["ms"],
+               mem896_reference_ms=ref["mem896"]["ms"])
+    return out
+
+
 def time_sweep(cand, valid, label, thresh, plus_one=False):
     """K1's device ms per launch and the plain version's ms on these
     candidates at IoU ``thresh``, and K1's bound."""
@@ -2876,8 +3106,14 @@ def main() -> int:
     for entry, n in zip(int8_entries, profile_launches[1:]):
         entry["launches"] += n
     log("time", f"phase 14 took {time.perf_counter() - t14:.1f} s")
-    log("time", f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"profile": profiled}), flush=True)
+
+    # -- 15. spatial sharding -------------------------------------------------
+    t15 = time.perf_counter()
+    spatial = spatial_phase(dev, smi)
+    log("time", f"phase 15 took {time.perf_counter() - t15:.1f} s")
+    log("time", f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"spatial": spatial}), flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "nms_sweep",

@@ -88,18 +88,21 @@ class RefineDetModel:
         self.detect = detector
 
     def raw_forward(self, images: torch.Tensor, train: bool = False,
-                    net: Optional[torch.nn.Module] = None):
+                    net: Optional[torch.nn.Module] = None, spatial=None):
         """Raw heads (arm_loc, arm_conf, odm_loc, odm_conf), float32, with
         the network in train mode iff ``train`` (BN: batch statistics, and
         the running ones move). ``net`` is a wrapper of ``self.net`` to
-        call in its place (the train step's ``DistributedDataParallel``)."""
+        call in its place (the train step's ``DistributedDataParallel``);
+        ``spatial`` the train step's ``parallel.spatial.SpatialContext``
+        under ``--spatial_shards`` (``images`` are then this rank's band
+        of rows; the heads come out whole)."""
         net = self.net if net is None else net
         if net.training != train or self.net.training != train:
             net.train(train)
         with torch.autocast(device_type=self.device.type,
                             dtype=torch.bfloat16,
                             enabled=self.dtype == torch.bfloat16):
-            return net(images)
+            return net(images) if spatial is None else net(images, spatial)
 
     def apply(self, images: torch.Tensor):
         """Phase-dependent forward of NHWC ``images``."""

@@ -221,46 +221,69 @@ class RefineDet(nn.Module):
                     getattr(self, name).weight.fill_(scale)
 
     @staticmethod
-    def _flatten(mods: nn.ModuleList, feats, ch: int) -> torch.Tensor:
-        outs = [m(f).permute(0, 2, 3, 1).reshape(f.shape[0], -1, ch)
-                for m, f in zip(mods, feats)]
+    def _flatten(mods: nn.ModuleList, name: str, feats, ch: int,
+                 run, full) -> torch.Tensor:
+        outs = [full(f"{name}.{i}", run(f"{name}.{i}", m, f))
+                .permute(0, 2, 3, 1).reshape(f.shape[0], -1, ch)
+                for i, (m, f) in enumerate(zip(mods, feats))]
         return torch.cat(outs, dim=1).float()
 
-    def forward(self, images: torch.Tensor) -> Heads:
+    def forward(self, images: torch.Tensor, spatial=None) -> Heads:
         """images NHWC [B, H, W, 3] -> (arm_loc, arm_conf, odm_loc,
-        odm_conf), float32."""
+        odm_conf), float32. ``spatial`` (a ``parallel.spatial.
+        SpatialContext``, the train step's under ``--spatial_shards``):
+        the images are this rank's band of rows, each layer runs as the
+        context's plan places it, and the heads come out whole on every
+        space rank."""
+        if spatial is None:
+            run, full = _run, _whole
+        else:
+            spatial.check(images)
+            run, full = spatial.call, spatial.full
         x = images.permute(0, 3, 1, 2)
         sources = []
         for k, layer in enumerate(self.vgg):
-            x = layer(x)
+            x = run(f"vgg.{k}", layer, x)
             if k in self._taps:
-                sources.append(getattr(self, self._taps[k])(x))
+                name = self._taps[k]
+                sources.append(run(name, getattr(self, name), x))
         sources.append(x)  # fc7
-        for layer in self.extras:
-            x = layer(x)
+        for k, layer in enumerate(self.extras):
+            x = run(f"extras.{k}", layer, x)
             if not self.use_bn:  # the BN variant has its ReLU modules
                 x = torch.relu(x)
         sources.append(x)
 
-        arm_loc = self._flatten(self.arm_loc, sources, 4)
-        arm_conf = self._flatten(self.arm_conf, sources, 2)
+        arm_loc = self._flatten(self.arm_loc, "arm_loc", sources, 4, run,
+                                full)
+        arm_conf = self._flatten(self.arm_conf, "arm_conf", sources, 2, run,
+                                 full)
 
         # TCB, top-down: the deeper level's deconv joins before the relu.
         n = len(sources)
         tcb_feats = [None] * n
         p = None
         for si in reversed(range(n)):
-            s = self.tcb0[3 * si](sources[si])
-            s = self.tcb0[3 * si + 1](s)
-            s = self.tcb0[3 * si + 2](s)
+            s = sources[si]
+            for j in range(3 * si, 3 * si + 3):
+                s = run(f"tcb0.{j}", self.tcb0[j], s)
             if si != n - 1:
-                s = s + self.tcb1[si](p)
-            s = self.tcb2[3 * si](s)
-            s = self.tcb2[3 * si + 1](s)
-            s = self.tcb2[3 * si + 2](s)
+                s = s + run(f"tcb1.{si}", self.tcb1[si], p)
+            for j in range(3 * si, 3 * si + 3):
+                s = run(f"tcb2.{j}", self.tcb2[j], s)
             p = s
             tcb_feats[si] = s
 
-        odm_loc = self._flatten(self.odm_loc, tcb_feats, 4)
-        odm_conf = self._flatten(self.odm_conf, tcb_feats, self.num_classes)
+        odm_loc = self._flatten(self.odm_loc, "odm_loc", tcb_feats, 4, run,
+                                full)
+        odm_conf = self._flatten(self.odm_conf, "odm_conf", tcb_feats,
+                                 self.num_classes, run, full)
         return arm_loc, arm_conf, odm_loc, odm_conf
+
+
+def _run(name: str, module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    return module(x)
+
+
+def _whole(name: str, y: torch.Tensor) -> torch.Tensor:
+    return y

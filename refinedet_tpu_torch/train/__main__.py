@@ -17,9 +17,10 @@ Several GPUs: ``--ngpu N`` (default: every visible GPU; one with
 each (gloo ranks with ``--device cpu``); under ``torchrun`` the
 launcher's environment gives the ranks instead. ``--batch_size`` is the
 global batch; rank 0 writes the log, the checkpoints and the plots.
-
-Flags of features the port does not have yet raise an error that names
-the ROADMAP.md item bringing them; none is ignored.
+``--spatial_shards S`` lays the N ranks out as N // S data-parallel
+groups of S ranks, each holding a band of every image's rows
+(``parallel/spatial.py``); N must divide by S and the batch by N // S,
+checked before anything is written or started.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from refinedet_tpu_torch.device import resolve_device
 from refinedet_tpu_torch.models import RefineDet, build_refinedet
 from refinedet_tpu_torch.models.convert import module_names
 from refinedet_tpu_torch.parallel import distributed
+from refinedet_tpu_torch.parallel.mesh import check_grid
 from refinedet_tpu_torch.train.checkpoints import CheckpointManager
 from refinedet_tpu_torch.train.trainer import Trainer
 from refinedet_tpu_torch.utils import logger as log_util
@@ -93,25 +95,15 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="keep an EMA of the weights for serving (0 = off); "
                         "checkpoints then carry it")
     p.add_argument("--spatial_shards", default=1, type=int,
-                   help="shard image height over devices")
+                   help="shard image height over devices (devices = "
+                        "data_parallel x spatial_shards); for very large "
+                        "inputs, e.g. the 896 variant")
     p.add_argument("--visdom", "--live_plot", dest="live_plot",
                    action="store_true",
                    help="live loss plot, <save_folder>/live_loss.png")
     p.add_argument("--device", default="cuda",
                    help="torch device; the card unless 'cpu' is asked for")
     return p.parse_args(argv)
-
-
-def refuse_unported(args: argparse.Namespace) -> None:
-    """Raise for a flag whose feature the port does not have yet."""
-    unported = [
-        (args.spatial_shards > 1, "--spatial_shards > 1",
-         "item 5's remains (its halo design)"),
-    ]
-    for asked, flag, item in unported:
-        if asked:
-            raise NotImplementedError(
-                f"{flag} is not ported yet: ROADMAP.md §1, {item}")
 
 
 def load_basenet(net: RefineDet, path: str) -> None:
@@ -159,11 +151,13 @@ def load_basenet(net: RefineDet, path: str) -> None:
 
 def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
-    refuse_unported(args)
     backend = "gloo" if torch.device(args.device).type == "cpu" else "nccl"
     ngpu = args.ngpu
     if ngpu is None:
         ngpu = 1 if backend == "gloo" else torch.cuda.device_count()
+    world = int(os.environ["WORLD_SIZE"]) if distributed.env_rendezvous() \
+        else ngpu
+    check_grid(max(world, 1), args.spatial_shards, args.batch_size)
     if ngpu > 1 and not distributed.env_rendezvous():
         # The ranks unpickle ``train`` by module: this one under its own
         # name, since the ``__main__`` of ``python -m`` is not importable.
@@ -217,7 +211,8 @@ def train(args: argparse.Namespace) -> None:
         max_epoch=args.max_epoch, num_workers=args.num_workers,
         worker_processes=args.worker_processes, seed=args.seed,
         grad_clip_norm=args.grad_clip, ema_decay=args.ema_decay,
-        on_device_augment=on_device, mean=tuple(means))
+        on_device_augment=on_device, mean=tuple(means),
+        spatial_shards=args.spatial_shards)
     live = LivePlotter(args.save_folder) if args.live_plot and lead \
         else None
     trainer = Trainer(model, dataset, cfg, save_folder=args.save_folder,

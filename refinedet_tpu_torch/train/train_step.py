@@ -26,6 +26,15 @@ loss is the global positive count, the BN variant's batch statistics are
 the global batch's (``models/layers.py:sync_batch_norm``), and the clip,
 the SGD step and the EMA see the all-reduced gradients, so every rank
 updates alike.
+
+With ``spatial_shards`` S > 1 (the JAX step's ``("data", "space")``
+mesh) the W ranks form a ``(W // S, S)`` grid (``parallel.mesh.
+make_grid``): a rank steps on its data group's rows and its band of
+image rows, the network runs under ``parallel.spatial``'s plan with its
+halo exchanges, and every space rank computes its data group's loss on
+the gathered heads. The loss is the data group's share (N global over
+the data group), scaled by D = W // S; DDP's average over the W ranks
+then divides the S-fold sum the replicated heads give back by S.
 """
 
 from __future__ import annotations
@@ -44,7 +53,10 @@ from refinedet_tpu_torch.data.augment import (augment_batch, sample_draws,
 from refinedet_tpu_torch.losses.multibox import refinedet_multibox_loss
 from refinedet_tpu_torch.models.layers import sync_batch_norm
 from refinedet_tpu_torch.parallel.distributed import all_reduce_sum
-from refinedet_tpu_torch.parallel.mesh import shard_batch
+from refinedet_tpu_torch.parallel.mesh import (image_band, make_grid,
+                                               shard_batch)
+from refinedet_tpu_torch.parallel.spatial import (SpatialContext,
+                                                  spatial_plan)
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -182,12 +194,30 @@ def make_train_step(model, optimizer: SGD, train_cfg: TrainConfig,
     wrapped in ``DistributedDataParallel`` (which makes every rank's
     weights rank 0's now), its BN layers are synced over the group, and
     augmentation draws for the global batch and applies this rank's rows
-    of the draws."""
+    of the draws.
+
+    With ``train_cfg.spatial_shards`` S > 1 (the ranks of ``group``, or
+    of the default group, form the grid; every rank builds it) the batch
+    is the data group's rows, whole images: the step takes this rank's
+    band of them after the augmentation. The BN layers sync over the
+    ranks that hold their rows once (``SpatialContext.sync_batch_norm``).
+    The returned step's ``spatial`` is the context (None at S = 1),
+    whose ``bytes`` count the halo and gather traffic."""
     ema_decay = float(train_cfg.ema_decay)
-    net, world, rank = None, 1, 0
-    if group is not None:
-        world, rank = dist.get_world_size(group), dist.get_rank(group)
+    net, spatial = None, None
+    data_group, data_world, data_rank = group, 1, 0
+    if train_cfg.spatial_shards > 1:
+        grid = make_grid(train_cfg.spatial_shards, group)
+        spatial = SpatialContext(spatial_plan(model.size, grid.shards,
+                                              model.use_bn), grid)
+        spatial.sync_batch_norm(model.net)
+        group, data_group = grid.group, grid.data_group
+        data_world, data_rank = grid.data_size, grid.data_index
+    elif group is not None:
+        data_world, data_rank = dist.get_world_size(group), \
+            dist.get_rank(group)
         sync_batch_norm(model.net, group)
+    if group is not None:
         # The synced BN keeps the running statistics equal: no buffer
         # broadcast.
         net = DistributedDataParallel(model.net, process_group=group,
@@ -197,22 +227,25 @@ def make_train_step(model, optimizer: SGD, train_cfg: TrainConfig,
         if train_cfg.on_device_augment:
             draws = sample_draws(step_generator(
                 train_cfg.seed, state.step, images.device),
-                images.shape[0] * world)
-            if group is not None:
-                draws = shard_batch(draws, rank, world)
+                images.shape[0] * data_world)
+            if data_group is not None:
+                draws = shard_batch(draws, data_rank, data_world)
             images, boxes, valid = augment_batch(
                 images, boxes, valid, draws, out_size=model.size,
                 mean=train_cfg.mean)
+        if spatial is not None:
+            images = image_band(images, spatial.index, spatial.shards)
         optimizer.zero_grad(set_to_none=True)
         # Train mode: the BN variant normalises with the batch statistics
         # and moves its running ones, as the JAX step's mutable
         # batch_stats do.
-        heads = model.raw_forward(images, train=True, net=net)
+        heads = model.raw_forward(images, train=True, net=net,
+                                  spatial=spatial)
         loss, metrics = train_losses(model, heads, boxes, labels, valid,
-                                     train_cfg, group)
+                                     train_cfg, data_group)
         # DDP averages the ranks' gradients; the global loss is the sum
-        # of the ranks' shares.
-        (loss * world if group is not None else loss).backward()
+        # of the data groups' shares.
+        (loss * data_world if group is not None else loss).backward()
         optimizer.apply_gradients(state.step)
         if ema_decay > 0:
             if state.ema is None:
@@ -221,4 +254,5 @@ def make_train_step(model, optimizer: SGD, train_cfg: TrainConfig,
             ema_update_(state.ema, model.net, state.step + 1, ema_decay)
         return dataclasses.replace(state, step=state.step + 1), metrics
 
+    step.spatial = spatial
     return step

@@ -12,7 +12,11 @@ Under an initialised process group (``parallel.distributed``), each rank
 runs this loop on its device: ``batch_size`` is the global batch, each
 rank loads its shard of the data (``batch_size // world`` rows a step),
 the state starts as rank 0's, and rank 0 alone writes checkpoints, log
-lines and the live plot.
+lines and the live plot. With ``spatial_shards`` S the W ranks form the
+``(W // S, S)`` grid of ``parallel.mesh.make_grid``: the data shards go
+by data index (``batch_size // (W // S)`` rows a step, the same rows on
+every space rank of a data group), and the step takes each rank's band
+of image rows.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch.distributed as dist
 from refinedet_tpu_torch.config import TrainConfig
 from refinedet_tpu_torch.data.loader import DataLoader, DeviceStager
 from refinedet_tpu_torch.parallel import distributed, replicate
+from refinedet_tpu_torch.parallel.mesh import check_grid, grid_position
 from refinedet_tpu_torch.train.checkpoints import CheckpointManager
 from refinedet_tpu_torch.train.schedule import make_lr_schedule
 from refinedet_tpu_torch.train.train_step import (TrainState,
@@ -48,16 +53,13 @@ class Trainer:
                  live_plotter=None):
         """``live_plotter`` (a ``utils.plot.LivePlotter``, or None) gets
         every logged step's losses and each epoch's end."""
-        if train_cfg.spatial_shards > 1:
-            raise NotImplementedError(
-                "spatial sharding (--spatial_shards) is not ported yet: "
-                "ROADMAP.md §1, item 5's remains (its halo design)")
         self.group = distributed.default_group()
         self.rank = distributed.process_index()
         world = distributed.process_count()
-        if train_cfg.batch_size % world:
-            raise ValueError(f"batch_size {train_cfg.batch_size} not "
-                             f"divisible by {world} data-parallel ranks")
+        shards = max(1, train_cfg.spatial_shards)
+        check_grid(world, shards, train_cfg.batch_size)
+        data_index, _ = grid_position(self.rank, shards)
+        data_world = world // shards
         self.model = model
         self.cfg = train_cfg
         self.dataset = dataset
@@ -82,11 +84,11 @@ class Trainer:
             return stager(batch)
 
         self.loader = DataLoader(
-            dataset, train_cfg.batch_size // world,
+            dataset, train_cfg.batch_size // data_world,
             max_boxes=train_cfg.max_boxes,
             num_workers=train_cfg.num_workers, shuffle=True,
             seed=train_cfg.seed, device_put=stage,
-            shard_id=self.rank, num_shards=world,
+            shard_id=data_index, num_shards=data_world,
             use_processes=train_cfg.worker_processes, drop_last=False)
         # The reference keeps the trailing partial batch (a ceil epoch);
         # the loader pads it with all-invalid samples, which add zero loss

@@ -1,6 +1,8 @@
 """Port parity: data parallelism (``refinedet_tpu_torch/parallel``, the
 data-parallel train step, the Trainer's resume, the loader's shards, the
-multi-rank Evaluator and the train CLI's ``--ngpu``) on the CPU.
+multi-rank Evaluator and the train CLI's ``--ngpu``) and spatial sharding
+(``--spatial_shards``: the rank grid, the plan, the halo exchanges and
+the S = 2 step) on the CPU.
 
 Two checks of two gloo ranks and their reference processes (no process
 group, each global batch whole) are spawned once for the module by
@@ -30,7 +32,17 @@ compiles its 2-device mesh step in this process. Tolerances:
   * the 2-rank Evaluator at 2 images a rank against one process at batch
     2: ``all_boxes`` exactly equal;
   * after ``Trainer.load_state`` of a checkpoint, rank 1's copy stale,
-    both ranks hold rank 0's state bitwise.
+    both ranks hold rank 0's state bitwise;
+  * spatial sharding, the same two ranks as one data group of S = 2 space
+    ranks, each holding a band of 160 rows: the plain steps
+    (``plain_spatial``) and the BN float64 step (``bn_spatial``) held to
+    the limits above against the same reference processes, and the first
+    plain step against JAX's mesh step (JAX's own
+    ``tests/test_sharding.py`` holds its data x space step equal to that
+    step); the collectives and their gradients against the unsharded ops
+    in float64 to 1e-12 (the halo convolution under bf16 autocast to
+    2e-2); the Trainer at S = 2 trains two steps and its
+    ``final`` checkpoint resumes alike on both ranks.
 """
 
 import os
@@ -63,6 +75,10 @@ from refinedet_tpu_torch.models import (RefineDet,  # noqa: E402
                                         state_dict_from_flax)
 from refinedet_tpu_torch.parallel import (distributed,  # noqa: E402
                                           shard_batch)
+from refinedet_tpu_torch.parallel.mesh import (  # noqa: E402
+    check_grid, grid_position, image_band)
+from refinedet_tpu_torch.parallel.spatial import spatial_plan  # noqa: E402
+from refinedet_tpu_torch.train import trainer as trainer_mod  # noqa: E402
 from refinedet_tpu_torch.tools import ddp_check  # noqa: E402
 from refinedet_tpu_torch.tools.train_check import (  # noqa: E402
     biases_before_bn, update_rel_errors)
@@ -90,8 +106,16 @@ def _jobs(init: str, ckpt: str):
               empty_rows=(1,), save=(1,))
     evals = dict(kind="eval", name="eval", size=SIZE, images=8,
                  rank_batch=2, nms_top_k=50, data_seed=3)
-    return (([{**plain, "checkpoint": ckpt}, resume], [[plain]]),
-            ([bn, evals], [[evals], [bn]]))
+    # the same global batches, one data group of two space ranks
+    plain_spatial = {**plain, "name": "plain_spatial", "spatial_shards": 2}
+    bn_spatial = {**bn, "name": "bn_spatial", "spatial_shards": 2}
+    ops = dict(kind="spatial_ops", name="spatial_ops")
+    trainer = dict(kind="trainer", name="trainer", size=SIZE, classes=2,
+                   batch=2, steps=2, lr=LR, clip=CLIP, spatial_shards=2,
+                   checkpoint=ckpt + "_trainer")
+    return (([{**plain, "checkpoint": ckpt}, resume, plain_spatial],
+             [[plain]]),
+            ([bn, evals, ops, bn_spatial, trainer], [[evals], [bn]]))
 
 
 def _cli(save: Path, root: str):
@@ -260,18 +284,19 @@ def test_single_process_runtime(monkeypatch):
 
 # -- 2-5. the train step ------------------------------------------------------
 
-def test_first_step_matches_jax_mesh(spawned, jax_mesh_step):
+def test_first_step_matches_jax_mesh(spawned, jax_mesh_step, job="plain"):
     """The ranks' first step against JAX's on a 2-device mesh, from JAX's
     init (the fixture starts the ranks before JAX compiles)."""
     want, want_update = jax_mesh_step
-    got = spawned.results()["rank0"]["plain"]
+    got = spawned.results()["rank0"][job]
     _losses_close(got["metrics"][0], {k: want[k] for k in LOSS_KEYS}, 2e-4)
     for k in ("num_pos_arm", "num_pos_odm"):
         assert got["metrics"][0][k] == want[k]
     _updates_close(got["saved"][1]["momentum"], want_update, 2e-2)
 
 
-@pytest.mark.parametrize("job", ["plain", "bn"])
+@pytest.mark.parametrize("job", ["plain", "bn", "plain_spatial",
+                                 "bn_spatial"])
 def test_ranks_stay_bitwise_equal(spawned, job):
     """The all-reduced gradients, the clip, SGD and the synced BN give
     every rank the same weights, momentum and running statistics, and
@@ -282,8 +307,8 @@ def test_ranks_stay_bitwise_equal(spawned, job):
         results["rank1"][job]["metrics"]
 
 
-def test_plain_steps_match_one_process(spawned):
-    got, want = spawned.results()["rank0"]["plain"], \
+def test_plain_steps_match_one_process(spawned, job="plain"):
+    got, want = spawned.results()["rank0"][job], \
         spawned.reference("plain")
     assert len(got["metrics"]) == 3
     for g, w in zip(got["metrics"], want["metrics"]):
@@ -294,11 +319,11 @@ def test_plain_steps_match_one_process(spawned):
                    2e-2)
 
 
-def _bn_updates(spawned):
+def _bn_updates(spawned, job="bn"):
     """The float64 BN step's updates, rank 0's and one process's, and the
     names held to 1e-9: all but the conv biases that feed a BN (zero
     gradient) and the L2Norm scales (computed in float32, as JAX's)."""
-    got, want = spawned.results()["rank0"]["bn"], spawned.reference("bn")
+    got, want = spawned.results()["rank0"][job], spawned.reference("bn")
     g, w = got["saved"][1]["momentum"], want["saved"][1]["momentum"]
     with torch.device("meta"):  # the layout, no weights
         skip = biases_before_bn(RefineDet(CLASSES, SIZE, use_bn=True))
@@ -320,20 +345,23 @@ def test_unequal_positives_use_the_global_n(spawned):
     _updates_close(g, {k: w[k] for k in exact}, 1e-9)
 
 
-def test_bn_float64_step_matches_one_process(spawned):
+def test_bn_float64_step_matches_one_process(spawned, job="bn"):
     """Synced batch statistics: the running mean and variance of
     RefineDet320-BN equal one process's in float64 to 1e-9, and the
     float32 L2Norm scales' updates to 1e-6."""
-    got, want = spawned.results()["rank0"]["bn"], spawned.reference("bn")
+    got, want = spawned.results()["rank0"][job], spawned.reference("bn")
     g, w = got["saved"][1]["buffers"], want["saved"][1]["buffers"]
     stats = [k for k in w if ".running_" in k]
     assert len(stats) == 2 * 17
     for k in stats:
         assert float((g[k] - w[k]).abs().max()) <= \
             1e-9 * float(w[k].abs().max()), k
-    g, w, _, l2 = _bn_updates(spawned)
+    g, w, exact, l2 = _bn_updates(spawned, job)
     rel = update_rel_errors(g, {k: w[k] for k in l2})
     assert max(rel.values()) <= 1e-6, rel
+    if job == "bn_spatial":  # the unequal-positives test covers "bn"'s
+        _losses_close(got["metrics"][0], want["metrics"][0], 1e-5)
+        _updates_close(g, {k: w[k] for k in exact}, 1e-9)
 
 
 # -- 6. eval, resume, the CLI ------------------------------------------------
@@ -377,3 +405,149 @@ def test_cli_ngpu2_trains(spawned):
         "RefineDet320_COCO_epoches_final.pth", "log.txt"}
     assert torch.load(str(save / "RefineDet320_COCO_epoches_final.pth"),
                       weights_only=True)["step"] == 2
+
+
+# -- 7. spatial sharding -----------------------------------------------------
+
+@pytest.mark.parametrize("size,shards,levels,gather_at", [
+    (320, 2, (True, True, True, False), "extras.1"),   # 5-row extra level
+    (320, 4, (True, True, False, False), "vgg.30"),    # pool5, 5-row bands
+    (512, 2, (True,) * 4, None),
+    (512, 4, (True,) * 4, None),
+    (896, 2, (True,) * 5, None),
+    (896, 4, (True,) * 4 + (False,), "extras.1")])     # 7-row bands
+def test_spatial_plan(size, shards, levels, gather_at):
+    """Where each net gathers: a stride-2 layer whose band starts on an
+    odd row (or a band thinner than its halo) runs replicated with all of
+    the trunk after it; the heads and TCB of the levels it feeds with it,
+    and the deconv that climbs from a replicated level into a sharded one
+    takes its band."""
+    plan = spatial_plan(size, shards)
+    heights = {320: (40, 20, 10, 5), 512: (64, 32, 16, 8),
+               896: (224, 112, 56, 28, 14)}[size]
+    assert (plan.levels, plan.heights, plan.gather_at) == \
+        (levels, heights, gather_at)
+    layers = plan.layers
+    assert [n for n, lay in layers.items() if lay.gather] == \
+        ([gather_at] if gather_at else [])
+    sharded = [i for i, on in enumerate(levels) if on]
+    assert [n for n, lay in layers.items() if lay.take] == [
+        f"tcb1.{i}" for i in sharded if i + 1 < len(levels)
+        and not levels[i + 1]]
+    # halos: 1 row for 3x3 convs, 3 for conv6 (dilation 3), one row above
+    # for the stride-2 extra; none for pools, 1x1 convs and the deconvs
+    assert layers["vgg.0"] == (True, (1, 1), False, False)
+    assert layers["vgg.4"] == (True, (0, 0), False, False)   # pool1
+    conv6, conv7 = layers["vgg.31"], layers["vgg.33"]
+    assert conv6.halo == ((3, 3) if conv6.sharded else (0, 0))
+    assert conv7.halo == (0, 0)
+    if gather_at is None:
+        assert layers["extras.1"].halo == (1, 0)
+    for i, on in enumerate(levels):
+        assert layers[f"odm_conf.{i}"].sharded == layers[f"tcb0.{3 * i}"] \
+            .sharded == on
+    # the BN variant: the same places under its own indices
+    bn = spatial_plan(size, shards, use_bn=True)
+    assert (bn.levels, bn.heights) == (levels, heights)
+    assert bn.gather_at == {None: None, "extras.1": "extras.3",
+                            "vgg.30": "vgg.43"}[gather_at]
+
+
+def test_spatial_first_step_matches_jax_mesh(spawned, jax_mesh_step):
+    """S = 2 (each rank a band of 160 rows) against JAX's data-mesh step,
+    which JAX's ``tests/test_sharding.py`` holds equal to its
+    data x space step."""
+    test_first_step_matches_jax_mesh(spawned, jax_mesh_step,
+                                     "plain_spatial")
+
+
+def test_spatial_plain_steps_match_one_process(spawned):
+    """Three S = 2 steps against one process on the whole batch; at 320
+    the extra level (5 rows) runs replicated on both ranks."""
+    test_plain_steps_match_one_process(spawned, "plain_spatial")
+
+
+def test_spatial_bn_float64_step_matches_one_process(spawned):
+    """The BN step at S = 2: the statistics count each row once, over
+    both ranks' bands at a sharded level and over the data group alone at
+    the replicated one (``extras.4``); losses and updates as ``bn``'s."""
+    test_bn_float64_step_matches_one_process(spawned, "bn_spatial")
+
+
+def test_spatial_plan_refuses_uneven_images():
+    with pytest.raises(ValueError, match="320 does not split into 3 bands"):
+        spatial_plan(320, 3)
+
+
+def test_rank_grid_matches_jax_mesh():
+    """Rank r at (r // S, r % S): JAX's ``devices.reshape(W // S, S)``;
+    JAX's errors for a grid the ranks do not fill."""
+    grid = np.arange(8).reshape(4, 2)
+    for r in range(8):
+        d, k = grid_position(r, 2)
+        assert grid[d, k] == r
+    images = np.arange(2 * 8 * 3 * 1).reshape(2, 8, 3, 1)
+    np.testing.assert_array_equal(image_band(images, 1, 2), images[:, 4:])
+    check_grid(8, 2, 4)
+    with pytest.raises(ValueError, match=r"^6 devices not divisible by "
+                       r"spatial_shards=4$"):
+        check_grid(6, 4)
+    with pytest.raises(ValueError, match=r"^batch_size 6 not divisible by "
+                       r"4 data-parallel devices$"):
+        check_grid(8, 2, 6)
+
+
+def test_trainer_shards_the_data_by_data_index(monkeypatch):
+    """Under S = 2 the Trainer's loader shards by data index: the two
+    space ranks of a data group load the same rows, the data groups the
+    JAX loader's shards, ``batch_size // (W // S)`` rows a step."""
+    from refinedet_tpu_torch.config import TrainConfig
+    from refinedet_tpu_torch.models import build_refinedet
+    model = build_refinedet("train", SIZE, 2, device="cpu")
+    monkeypatch.setattr(distributed, "process_count", lambda: 4)
+    monkeypatch.setattr(trainer_mod, "make_train_step", lambda *a: None)
+    data = list(range(23))
+    seen = {}
+    for rank in range(4):
+        monkeypatch.setattr(distributed, "process_index", lambda: rank)
+        trainer = trainer_mod.Trainer(
+            model, data, TrainConfig(batch_size=6, num_workers=0,
+                                     spatial_shards=2))
+        loader = trainer.loader
+        assert (loader.batch_size, loader.shard_id, loader.num_shards) == \
+            (3, rank // 2, 2)
+        seen[rank] = loader._epoch_indices().tolist()
+        want = JDataLoader(data, batch_size=3, num_workers=1, seed=0,
+                           shard_id=rank // 2, num_shards=2,
+                           drop_last=False)._epoch_indices()
+        assert seen[rank] == want.tolist()
+    assert seen[0] == seen[1] != seen[2] == seen[3]
+
+
+@pytest.mark.parametrize("op,tol", [
+    ("conv3x3", 1e-12), ("dilated3", 1e-12), ("stride2", 1e-12),
+    ("conv3x3_bf16", 2e-2), ("maxpool_inf", 1e-12), ("gather_rows", 1e-12),
+    ("take_rows", 1e-12)])
+def test_spatial_collectives_match_unsharded_ops(spawned, op, tol):
+    """Each collective and its gradients on both ranks against the op on
+    the whole tensor, relative to the largest magnitude: ``halo_conv2d``
+    in float64 (a stride-2 conv with a halo above only; the weight and
+    bias gradients summed over the ranks) and under bf16 autocast (bf16
+    sums in two orders: 2e-2), a max pool over a -inf ``halo_exchange``,
+    ``gather_rows`` (its backward sums the ranks' gradients) and
+    ``take_rows``."""
+    for rank in ("rank0", "rank1"):
+        fwd, grad = spawned.results()[rank]["spatial_ops"][op]
+        assert fwd <= tol and grad <= tol, (rank, fwd, grad)
+
+
+def test_spatial_trainer_trains_and_resumes(spawned):
+    """``Trainer`` at S = 2 over the two ranks: two logged steps with
+    finite losses, rank 0's ``final`` checkpoint, and a fresh Trainer on
+    each rank (weights of another seed) resumes rank 0's state."""
+    r0, r1 = (spawned.results()[r]["trainer"] for r in ("rank0", "rank1"))
+    assert len(r0["losses"]) == 2 and np.isfinite(r0["losses"]).all()
+    assert r1["losses"] == []  # rank 0 alone logs
+    assert r0["checkpoint"] and r0["digest"] == r1["digest"]
+    assert r0["resumed"] == r1["resumed"] == r0["digest"]
+    assert r0["step"] == r1["step"] == 2

@@ -524,7 +524,10 @@ def test_trainer_cadence_and_unported_options(tmp_path):
     for epoch in range(0, 221):
         trainer._maybe_checkpoint(None, epoch)
     assert saved == [10 * k for k in range(1, 21)] + [205, 210, 215, 220]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # Spatial sharding needs a grid of ranks: one process is refused with
+    # the JAX Trainer's error.
+    with pytest.raises(ValueError, match=r"^1 devices not divisible by "
+                       r"spatial_shards=2$"):
         Trainer(model, _Toy(4), TrainConfig(spatial_shards=2))
     # On-device augmentation is taken: the target guard is skipped
     # (staging pixels are not in [0, 1]) and uint8 stays uint8.
@@ -642,10 +645,15 @@ def test_cli_trains_and_resumes_on_cpu(tiny_coco, tmp_path):
     assert torch.load(str(final), weights_only=True)["step"] == 2
 
 
-@pytest.mark.parametrize("flags", [["--spatial_shards", "2"],
-                                   ["--spatial_shards", "2", "--ngpu", "2"]])
+@pytest.mark.parametrize("flags", [["--spatial_shards", "2", "--ngpu", "1"],
+                                   ["--spatial_shards", "3", "--ngpu", "2"]])
 def test_cli_refuses_unported_flags(flags, tmp_path):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1, item"):
+    """``--spatial_shards`` is ported; a grid the ranks do not fill is
+    refused with the JAX Trainer's error, before anything is written or
+    spawned."""
+    shards, devices = flags[1], flags[3]
+    with pytest.raises(ValueError, match=rf"^{devices} devices not "
+                       rf"divisible by spatial_shards={shards}$"):
         cli.main(flags + ["--device", "cpu", "--save_folder",
                           str(tmp_path)])
     assert not os.listdir(tmp_path)  # refused before anything was written
