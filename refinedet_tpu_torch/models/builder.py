@@ -15,6 +15,9 @@ in float32), which is the JAX package's bf16 mode.
 
 ``quant=True`` builds the int8 serving twin (``QuantConv2d`` trunk and
 TCB, test phase only); ``quant/ptq.py:quantize_model`` fills it.
+``stem_s2d=True`` builds the space-to-depth stem twin (test phase, plain
+variant only); load a standard checkpoint into it through
+``models/stem_s2d.py:fold_stem_state_dict``.
 """
 
 from __future__ import annotations
@@ -59,12 +62,16 @@ class RefineDetModel:
                  detector: Optional[Detect_RefineDet] = None,
                  use_bn: bool = False, dtype: torch.dtype = torch.float32,
                  device: DeviceLike = "cuda", seed: int = 0,
-                 quant: bool = False, quant_skip: Sequence[str] = ()):
+                 quant: bool = False, quant_skip: Sequence[str] = (),
+                 stem_s2d: bool = False):
         if phase not in ("train", "test"):
             raise ValueError(f"phase must be 'train' or 'test', got {phase!r}")
         if quant and phase != "test":
             raise ValueError("int8 quantization is an inference-only "
                              "serving mode; use phase='test'")
+        if stem_s2d and phase != "test":
+            raise ValueError("stem_s2d is an inference-only serving "
+                             "transform; use phase='test'")
         if size not in SIZES:
             raise ValueError(f"supported sizes: {SIZES} (896 is the "
                              "five-source variant)")
@@ -77,9 +84,11 @@ class RefineDetModel:
         self.dtype = dtype
         self.quant = quant
         self.quant_skip = tuple(quant_skip)
+        self.stem_s2d = stem_s2d
         self.device = resolve_device(device)
         self.cfg = anchor_config_for(size, num_classes)
-        net = RefineDet(num_classes, size, use_bn, quant, quant_skip)
+        net = RefineDet(num_classes, size, use_bn, quant, quant_skip,
+                        stem_s2d)
         net.reset_parameters(torch.Generator().manual_seed(seed))
         self.net = net.to(self.device,
                           memory_format=torch.channels_last).eval()
@@ -127,15 +136,18 @@ def build_refinedet(phase: str, size: int = 320, num_classes: int = 21,
                     dtype: torch.dtype = torch.float32,
                     device: DeviceLike = "cuda",
                     seed: int = 0, quant: bool = False,
-                    quant_skip: Sequence[str] = ()) -> RefineDetModel:
+                    quant_skip: Sequence[str] = (),
+                    stem_s2d: bool = False) -> RefineDetModel:
     """Build RefineDet on ``device`` (the card unless ``device="cpu"``)
     with weights drawn from ``seed``; load trained weights with
     ``model.net.load_state_dict(state, strict=True)``. ``quant=True``
     builds the int8 serving twin, ``quant_skip`` (flax names) keeps the
-    named convs unquantized."""
+    named convs unquantized. ``stem_s2d=True`` builds the space-to-depth
+    stem twin, its seed weights the fold of the standard net's."""
     return RefineDetModel(phase, size, num_classes, detector=detector,
                           use_bn=use_bn, dtype=dtype, device=device,
-                          seed=seed, quant=quant, quant_skip=quant_skip)
+                          seed=seed, quant=quant, quant_skip=quant_skip,
+                          stem_s2d=stem_s2d)
 
 
 def build_refinedet_bn(phase: str, size: int = 320, num_classes: int = 21,

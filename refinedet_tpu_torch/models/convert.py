@@ -18,7 +18,9 @@ packages can be given the same weights:
     momentum).
 
 The variant and the source count are read from the tree: a
-``vgg_conv1_1_bn`` entry means BN, an ``arm_loc4`` entry five sources.
+``vgg_conv1_1_bn`` entry means BN, an ``arm_loc4`` entry five sources,
+a ``stem_conv1`` entry the space-to-depth stem twin (its stem modules
+keep their flax names).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 
 from refinedet_tpu_torch.models.refinedet import L2NORM_TAPS, \
     vgg_conv_indices
+from refinedet_tpu_torch.models.stem_s2d import STEM_PHASES
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
@@ -45,13 +48,21 @@ def _deconv(k) -> torch.Tensor:
     return _tensor(w[:, :, ::-1, ::-1])
 
 
-def module_names(use_bn: bool = False, num_sources: int = 4
-                 ) -> Dict[str, Tuple[str, str]]:
+def module_names(use_bn: bool = False, num_sources: int = 4,
+                 stem_s2d: bool = False) -> Dict[str, Tuple[str, str]]:
     """Flax name -> (torch module name, kind) of every layer with weights,
     kind one of ``conv``, ``deconv``, ``bn``, ``l2norm``: the reference
-    layout of ``refinedet.py`` (plain) or ``refinedet_bn.py`` (BN)."""
+    layout of ``refinedet.py`` (plain) or ``refinedet_bn.py`` (BN); with
+    ``stem_s2d`` the stem twin's (``stem_conv1`` and the four
+    ``stem_conv2_{di}{dj}`` in place of conv1_1 and conv1_2)."""
     names: Dict[str, Tuple[str, str]] = {}
+    if stem_s2d:
+        names["stem_conv1"] = ("stem_conv1", "conv")
+        for phase in STEM_PHASES:
+            names[f"stem_conv2_{phase}"] = (f"stem_conv2_{phase}", "conv")
     for idx, name in vgg_conv_indices(use_bn).items():
+        if stem_s2d and name in ("conv1_1", "conv1_2"):
+            continue
         names[f"vgg_{name}"] = (f"vgg.{idx}", "conv")
         if use_bn:
             names[f"vgg_{name}_bn"] = (f"vgg.{idx + 1}", "bn")
@@ -82,7 +93,8 @@ def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
     params = variables["params"] if "params" in variables else variables
     stats = variables.get("batch_stats") or {}
     names = module_names("vgg_conv1_1_bn" in params,
-                         5 if "arm_loc4" in params else 4)
+                         5 if "arm_loc4" in params else 4,
+                         "stem_conv1" in params)
     state: Dict[str, torch.Tensor] = {}
     for flax_name, (module, kind) in names.items():
         leaf = params[flax_name]

@@ -3,13 +3,15 @@
 Port of ``refinedet_tpu/models/layers.py``: the L2Norm tap and the 2x2
 stride-2 max pools of the VGG trunk, plus the BatchNorm of the BN variant
 with the semantics of the JAX package's ``flax.linen.BatchNorm``, and the
-int8 ``QuantConv`` as ``QuantConv2d``. The slice-backward pool is not
-ported.
+int8 ``QuantConv`` as ``QuantConv2d``. The pools' backward is switched,
+as in JAX, by the module-level ``POOL_BACKWARD``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import math
+from typing import Iterator, Optional
 
 import torch
 import torch.distributed as dist
@@ -180,9 +182,98 @@ class L2Norm(nn.Module):
         return out.to(x.dtype)
 
 
-def max_pool_2x2(ceil_mode: bool = False) -> nn.MaxPool2d:
-    """2x2 stride-2 max pool; ``ceil_mode`` rounds odd sizes up (pool3)."""
-    return nn.MaxPool2d(2, 2, ceil_mode=ceil_mode)
+# The 2x2 pools' backward, read each time a pool runs (the JAX package's
+# switch, for A/B measurement: ``tools/bench_pool_backward.py``):
+#   "select_scatter"  ATen's ``max_pool2d`` and its own backward, which
+#                     saves the int64 index of each window's max (XLA's
+#                     reduce_window VJP, select_and_scatter, in JAX);
+#   "slice"           ``MaxPool2dSlice``: the same forward, saving the
+#                     pooled output instead of the indices, and a backward
+#                     of four strided slices, compares and an interleave.
+POOL_BACKWARD = "select_scatter"
+POOL_BACKWARDS = ("select_scatter", "slice")
+
+
+@contextlib.contextmanager
+def pool_backward(mode: str) -> Iterator[None]:
+    """``POOL_BACKWARD = mode`` inside, the previous value restored on
+    exit."""
+    global POOL_BACKWARD
+    if mode not in POOL_BACKWARDS:
+        raise ValueError(f"POOL_BACKWARD must be one of {POOL_BACKWARDS}, "
+                         f"got {mode!r}")
+    prev, POOL_BACKWARD = POOL_BACKWARD, mode
+    try:
+        yield
+    finally:
+        POOL_BACKWARD = prev
+
+
+class MaxPool2dSlice(torch.autograd.Function):
+    """2x2 stride-2 max pool (even sizes) whose backward is the JAX
+    package's first-tie-wins ``_pool2x2_bwd``: the first element of each
+    window in row-major order ((0,0), (0,1), (1,0), (1,1)) equal to the
+    max takes the whole gradient, as ATen's backward gives it (its
+    forward keeps the first max). Equality against the output is exact:
+    the max is one of the four inputs. So on finite inputs the gradient
+    equals ATen's bit for bit, except that a -0 gradient stays -0 here
+    (as in JAX's slice VJP) where ATen's sum into a zero gives +0.
+
+    Saves ``(x, y)``: ``x`` is the ReLU's output, which autograd keeps
+    anyway, and ``y`` a quarter of its size, where ATen keeps int64
+    indices of ``y``'s size. The gradient is written into a buffer laid
+    out like ``x`` (channels-last on the card), one strided
+    ``torch.where`` per window position, so no layout copy follows."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        y = F.max_pool2d(x, 2, 2)
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        x, y = ctx.saved_tensors
+        w00 = x[:, :, 0::2, 0::2] == y
+        w01 = (x[:, :, 0::2, 1::2] == y) & ~w00
+        taken = w00 | w01
+        w10 = (x[:, :, 1::2, 0::2] == y) & ~taken
+        w11 = ~(taken | w10)
+        gx = torch.empty_like(x)
+        zero = g.new_zeros(())
+        for (i, j), w in (((0, 0), w00), ((0, 1), w01), ((1, 0), w10),
+                          ((1, 1), w11)):
+            torch.where(w, g, zero, out=gx[:, :, i::2, j::2])
+        return gx
+
+
+class MaxPool2x2(nn.Module):
+    """2x2 stride-2 max pool of the trunk (``max_pool_2x2`` in JAX);
+    ``ceil_mode`` rounds odd sizes up (pool3). Parameter-free; its
+    backward is the one ``POOL_BACKWARD`` names when the pool runs. Under
+    "slice" an odd size is padded bottom and right with -inf first in
+    ceil mode, as JAX pads (the same windows as ATen's ceil mode), and
+    cropped to even otherwise."""
+
+    def __init__(self, ceil_mode: bool = False):
+        super().__init__()
+        self.ceil_mode = ceil_mode
+
+    def extra_repr(self) -> str:
+        return f"ceil_mode={self.ceil_mode}"
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if POOL_BACKWARD not in POOL_BACKWARDS:
+            raise ValueError(f"POOL_BACKWARD must be one of "
+                             f"{POOL_BACKWARDS}, got {POOL_BACKWARD!r}")
+        if POOL_BACKWARD == "select_scatter":
+            return F.max_pool2d(x, 2, 2, ceil_mode=self.ceil_mode)
+        h, w = x.shape[2:]
+        if self.ceil_mode and (h % 2 or w % 2):
+            x = F.pad(x, (0, w % 2, 0, h % 2), value=-math.inf)
+        elif h % 2 or w % 2:  # floor mode drops the odd row and column
+            x = x[:, :, :h - h % 2, :w - w % 2]
+        return MaxPool2dSlice.apply(x)
 
 
 class QuantConv2d(nn.Module):

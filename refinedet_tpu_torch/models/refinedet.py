@@ -23,13 +23,23 @@ Variants, as in the JAX module:
     ``quant_skip`` takes the JAX package's (flax) names, ``vgg_conv1_2``
     and so on (``convert.module_names`` maps them to module paths). The
     BN variant keeps its BN after each quantized conv.
+  * ``stem_s2d``: the space-to-depth stem, an inference-only serving
+    transform of the plain network (``models/stem_s2d.py``). conv1_1
+    becomes ``stem_conv1``, a 4x4 stride-2 conv with 256 outputs, the
+    2x2-blocked layout of conv1_1's 64; conv1_2 and pool1 become four 2x2
+    phase convs ``stem_conv2_{di}{dj}`` and their elementwise max. Its
+    weights are a standard network's, folded (``reset_parameters``
+    folds the standard net of the same draws).
 
 Submodules carry the reference network's state_dict names (``vgg.N``,
 ``extras.N``, ``arm_loc.i``, ``tcb0.{3i,3i+2}``, ``tcb1.i``,
 ``tcb2.{3i+1}``, ``conv4_3_L2Norm``), with the BN variant's indices of
 ``refinedet_bn.py`` (each conv at idx, its BN at idx+1, then the ReLU;
 extras at 0/1/3/4), so a reference ``.pth`` of either variant
-strict-loads.
+strict-loads. The stem twin keeps the trunk from conv2_1 on at those
+indices (``vgg.0``-``vgg.4`` are parameter-free placeholders) and adds
+the stem modules under their flax names, which have no reference
+counterpart.
 """
 
 from __future__ import annotations
@@ -40,7 +50,9 @@ import torch
 from torch import nn
 
 from refinedet_tpu_torch.models.layers import BatchNorm2d, L2Norm, \
-    QuantConv2d, max_pool_2x2
+    MaxPool2x2, QuantConv2d
+from refinedet_tpu_torch.models.stem_s2d import STEM_PHASES, \
+    STEM_VGG_LAYERS, fold_stem_state_dict
 
 # VGG-16 convs (name, width); "M" is a 2x2 pool, "C" the ceil-mode pool3.
 VGG_CFG = (("conv1_1", 64), ("conv1_2", 64), "M",
@@ -127,7 +139,7 @@ def _vgg_module(entry, quantized: Sequence[str]) -> nn.Module:
         return BatchNorm2d(entry[2])
     if kind == "relu":
         return nn.ReLU(inplace=True)
-    return max_pool_2x2(ceil_mode=entry[1])
+    return MaxPool2x2(ceil_mode=entry[1])
 
 
 class RefineDet(nn.Module):
@@ -135,21 +147,36 @@ class RefineDet(nn.Module):
 
     def __init__(self, num_classes: int = 21, size: int = 320,
                  use_bn: bool = False, quant: bool = False,
-                 quant_skip: Sequence[str] = ()):
+                 quant_skip: Sequence[str] = (), stem_s2d: bool = False):
         super().__init__()
+        if stem_s2d and (use_bn or quant):
+            raise ValueError("stem_s2d is a plain-model serving transform "
+                             "(no BN/quant folding)")
         self.num_classes = num_classes
         self.size = size
         self.use_bn = use_bn
         self.quant = quant
         self.quant_skip = tuple(quant_skip)
+        self.stem_s2d = stem_s2d
         sources = source_channels(size)
         # flax names of the quantizable convs not skipped: calibrated in
         # the float network, QuantConv2d in the int8 twin
         self.calibrated = tuple(n for n in quantizable_names(len(sources))
-                                if n not in self.quant_skip)
+                                if n not in self.quant_skip
+                                and not (stem_s2d and n == "vgg_conv1_2"))
         quantized = self.calibrated if quant else ()
         layout = vgg_layout(use_bn)
         self.vgg = nn.ModuleList([_vgg_module(e, quantized) for e in layout])
+        if stem_s2d:
+            for k in range(STEM_VGG_LAYERS):
+                self.vgg[k] = nn.Identity()
+            c1 = layout[0][3]  # conv1's width
+            self.stem_conv1 = nn.Conv2d(3, 4 * c1, 4, stride=2, padding=1)
+            for phase in STEM_PHASES:
+                # padding 1 all round: phase (di, dj) is the output window
+                # starting at (di, dj) (see ``stem``)
+                self.add_module(f"stem_conv2_{phase}", nn.Conv2d(
+                    4 * c1, c1, 2, padding=1))
         relu_at = {e[1]: i for i, e in enumerate(layout) if e[0] == "relu"}
         width = {e[1]: e[3] for e in layout if e[0] == "conv"}
         # vgg index -> the L2Norm applied to that layer's output
@@ -200,7 +227,15 @@ class RefineDet(nn.Module):
         """The JAX package's init: He-normal (truncated) for the VGG
         trunk, Xavier-uniform elsewhere, zero biases, L2Norm scales 10/8,
         BatchNorm at scale 1, bias 0, mean 0, var 1. Draws from
-        ``generator`` in module order."""
+        ``generator`` in module order. The stem twin takes the fold of
+        the standard network drawn so (the JAX twin has no init of its
+        own either)."""
+        if self.stem_s2d:
+            standard = RefineDet(self.num_classes, self.size)
+            standard.reset_parameters(generator)
+            self.load_state_dict(fold_stem_state_dict(
+                standard.state_dict()))
+            return
         with torch.no_grad():
             for name, m in self.named_modules():
                 if isinstance(m, BatchNorm2d):
@@ -237,12 +272,21 @@ class RefineDet(nn.Module):
         space rank."""
         if spatial is None:
             run, full = _run, _whole
+        elif self.stem_s2d:
+            raise ValueError("stem_s2d is an inference-only serving "
+                             "transform: no spatial sharding")
         else:
             spatial.check(images)
             run, full = spatial.call, spatial.full
         x = images.permute(0, 3, 1, 2)
         sources = []
+        start = 0
+        if self.stem_s2d:
+            x = self.stem(x)
+            start = STEM_VGG_LAYERS
         for k, layer in enumerate(self.vgg):
+            if k < start:
+                continue
             x = run(f"vgg.{k}", layer, x)
             if k in self._taps:
                 name = self._taps[k]
@@ -279,6 +323,32 @@ class RefineDet(nn.Module):
         odm_conf = self._flatten(self.odm_conf, "odm_conf", tcb_feats,
                                  self.num_classes, run, full)
         return arm_loc, arm_conf, odm_loc, odm_conf
+
+    def stem(self, x: torch.Tensor) -> torch.Tensor:
+        """conv1_1, conv1_2 and pool1 with their ReLUs (``vgg.0``-``vgg.4``)
+        or the twin's blocked form of them: NCHW images in, pool1's output
+        out (``tools/bench_stem_s2d.py`` times it alone).
+
+        The twin: ``stem_conv1`` and its ReLU give the blocked features
+        ``[B, 4C, H/2, W/2]``; phase (di, dj) is JAX's 2x2 conv padded
+        ``((1-di, di), (1-dj, dj))``, which is the (H/2, W/2) window at
+        (di, dj) of the same conv padded by 1 all round (one extra row
+        and column computed, no padded copy and no slice of the input:
+        each conv reads the channels-last features as they are); then
+        the phases' elementwise max and the ReLU."""
+        if not self.stem_s2d:
+            for layer in self.vgg[:STEM_VGG_LAYERS]:
+                x = layer(x)
+            return x
+        x = torch.relu(self.stem_conv1(x))
+        h, w = x.shape[2:]
+        y = None
+        for phase in STEM_PHASES:
+            di, dj = int(phase[0]), int(phase[1])
+            p = getattr(self, f"stem_conv2_{phase}")(x)[
+                :, :, di:di + h, dj:dj + w]
+            y = p if y is None else torch.maximum(y, p)
+        return torch.relu_(y)
 
 
 def _run(name: str, module: nn.Module, x: torch.Tensor) -> torch.Tensor:

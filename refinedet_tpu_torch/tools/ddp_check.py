@@ -59,6 +59,9 @@ Jobs:
     ``rank_batch`` images a batch on each rank (``batch_size`` = rank_batch
     × world). Result: ``all_boxes`` (rank 0 and the reference; None on the
     others) and K1's launches.
+
+Any job may name the pools' backward, ``pool_backward`` (``models/
+layers.py:POOL_BACKWARD``, "select_scatter" by default), to run under.
 """
 
 from __future__ import annotations
@@ -76,6 +79,7 @@ import torch.distributed as dist
 
 from refinedet_tpu_torch.config import VOC_MEANS, DetectConfig, TrainConfig
 from refinedet_tpu_torch.data.collate import Batch
+from refinedet_tpu_torch.models import layers
 from refinedet_tpu_torch.parallel import distributed
 from refinedet_tpu_torch.parallel.mesh import (grid_position, make_grid,
                                                shard_batch)
@@ -442,8 +446,12 @@ def run_jobs(jobs: Sequence[dict], group: Optional[dist.ProcessGroup],
              device) -> Dict[str, dict]:
     """Each job's result by name, run in order on ``device``."""
     device = torch.device(device)
-    return {job["name"]: JOBS[job["kind"]](job, group, device)
-            for job in jobs}
+    results = {}
+    for job in jobs:
+        with layers.pool_backward(job.get("pool_backward",
+                                          layers.POOL_BACKWARD)):
+            results[job["name"]] = JOBS[job["kind"]](job, group, device)
+    return results
 
 
 @dataclasses.dataclass

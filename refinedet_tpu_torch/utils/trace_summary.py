@@ -65,7 +65,10 @@ OP_CATEGORIES = [
     (re.compile(r"convolution_backward|cudnn_convolution_backward"),
      "convolution backward"),
     (re.compile(r"conv|cudnn_convolution"), "convolution"),
-    (re.compile(r"max_pool2d.*backward"), "max_pool2d backward"),
+    # ``models/layers.py:MaxPool2dSlice``'s backward, under
+    # POOL_BACKWARD="slice", is the autograd node of that name
+    (re.compile(r"max_pool2d.*backward|MaxPool2dSliceBackward"),
+     "max_pool2d backward"),
     (re.compile(r"max_pool2d"), "max_pool2d"),
     (re.compile(r"softmax.*backward"), "softmax backward"),
     (re.compile(r"softmax"), "softmax"),

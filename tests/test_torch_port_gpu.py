@@ -18,8 +18,11 @@ synced BN, equal to the ungrouped one), and the trained-fixture tools
 (the fixture built on the card, the shared training core for 3 steps and
 its AP through K1, ``bench_serve`` with 8 requests), the artifact's two
 programs (the card's and the CPU's, each exact on its device), the
-on-device ``soft_nms`` against the CPU (no host sync), and
-``profile_trace`` seeing one K1 launch under its op.
+on-device ``soft_nms`` against the CPU (no host sync),
+``profile_trace`` seeing one K1 launch under its op, the space-to-depth
+stem twin against the standard net, the slice max-pool backward bitwise
+against ATen's (and filed under the pool's backward in a trace), the two
+bench tools at a small size, and the demo's core against the CPU.
 
 They skip without a CUDA card. On the card::
 
@@ -49,7 +52,8 @@ from refinedet_tpu_torch.detect.detection import detect_refinedet
 from refinedet_tpu_torch.eval import Evaluator
 from refinedet_tpu_torch.eval import evaluator as evaluator_module
 from refinedet_tpu_torch.eval.evaluator import eval_postprocess
-from refinedet_tpu_torch.models import build_refinedet, build_refinedet_bn
+from refinedet_tpu_torch.models import (build_refinedet, build_refinedet_bn,
+                                        layers)
 from refinedet_tpu_torch.ops import int8_conv, nms_cuda, nms_native
 from refinedet_tpu_torch.ops.nms import nms_sweep_reference, soft_nms
 from refinedet_tpu_torch.parallel import distributed
@@ -60,7 +64,9 @@ from refinedet_tpu_torch.serve.export import (ServingModel,
                                               fused_postprocess,
                                               load_serving, make_serving_fn,
                                               model_on, save_serving)
-from refinedet_tpu_torch.tools import bench_serve, fixture_train, int8_bench
+from refinedet_tpu_torch.tools import (bench_pool_backward, bench_serve,
+                                       bench_stem_s2d, demo, fixture_train,
+                                       int8_bench)
 from refinedet_tpu_torch.tools.fixtures import coco_fixture
 from refinedet_tpu_torch.tools.eval_check import (SyntheticSSDD,
                                                   SyntheticVOC)
@@ -931,3 +937,114 @@ def test_profile_trace_sees_one_k1_launch(cuda, tmp_path):
     assert stats["handwritten_calls"] == {"nms_sweep (K1)": 1}
     assert stats["categories_ms"]["nms_sweep (K1)"] > 0
     assert [x["name"] for x in stats["executions"]] == ["k1"]
+
+
+# -- the stem twin, the slice pool backward, the benches, the demo core --------
+
+def test_stem_twin_on_the_card_matches_standard(cuda):
+    """f32 (TF32 off), batch 2: the JAX test's 2e-3 of max(1, max |head|)."""
+    m0 = build_refinedet("test", 320, 21, device=cuda, seed=0)
+    m1 = build_refinedet("test", 320, 21, device=cuda, seed=0, stem_s2d=True)
+    x = torch.from_numpy(np.random.RandomState(1).uniform(
+        -120, 130, (2, 320, 320, 3)).astype(np.float32)).to(cuda)
+    with torch.inference_mode():
+        for a, b in zip(m0.raw_forward(x), m1.raw_forward(x)):
+            assert float((b - a).abs().max()) <= 2e-3 * max(
+                1.0, float(a.abs().max()))
+
+
+def _pool_grads(x, ceil, g):
+    out = {}
+    for mode in layers.POOL_BACKWARDS:
+        xx = x.detach().clone().requires_grad_()
+        with layers.pool_backward(mode):
+            y = layers.MaxPool2x2(ceil)(xx)
+        y.backward(g)
+        out[mode] = (y.detach(), xx.grad)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,ceil", [((8, 64, 80, 80), False),
+                                        ((4, 256, 75, 75), True)],
+                         ids=["even", "ceil-odd"])
+def test_slice_pool_backward_on_the_card_equals_aten(cuda, shape, ceil,
+                                                     dtype):
+    """Channels-last, ties forced: output and gradient bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = (torch.round(torch.randn(shape, generator=gen, device=cuda) * 2)
+         / 2).to(dtype).contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        g = torch.randn(layers.MaxPool2x2(ceil)(x).shape, generator=gen,
+                        device=cuda).to(dtype)
+    out = _pool_grads(x, ceil, g)
+    (y_a, g_a), (y_s, g_s) = out["select_scatter"], out["slice"]
+    view = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(y_s.view(view), y_a.view(view))
+    assert torch.equal(g_s.view(view), g_a.view(view))
+    assert g_s.is_contiguous(memory_format=torch.channels_last)
+
+
+def test_slice_pool_backward_in_a_trace(cuda, tmp_path):
+    """Every kernel of the slice pool's forward and backward is filed
+    under ``max_pool2d`` or ``max_pool2d backward``."""
+    x = torch.randn(4, 64, 80, 80, device=cuda).contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+    g = torch.randn(4, 64, 40, 40, device=cuda)
+    pool = layers.MaxPool2x2()
+    with layers.pool_backward("slice"):
+        pool(x).backward(g)  # warm-up
+        x.grad = None  # a second gradient would be added in another op
+        with profile_trace(str(tmp_path)):
+            with step_annotation("pool"):
+                pool(x).backward(g)
+    cats = trace_stats(str(tmp_path))["categories_ms"]
+    assert cats.get("max_pool2d backward", 0) > 0
+    assert set(cats) <= {"max_pool2d", "max_pool2d backward"}, cats
+
+
+def test_benches_on_the_card(cuda):
+    """Both bench tools at batch 2, 2 iterations: four timed turns each,
+    A, B, B, A, with their peaks, for the whole and for the part each
+    changes alone."""
+    for tool, argv, names, part in (
+            (bench_stem_s2d, ["--batch", "2", "--iters", "2"],
+             {"standard", "stem_s2d"}, "stems"),
+            (bench_pool_backward, ["2", "2"], set(layers.POOL_BACKWARDS),
+             "pools")):
+        out = tool.main(argv)
+        for runs in (out["results"], out[part]):
+            assert set(runs) == names
+            for r in runs.values():
+                assert len(r["ms"]) == 2 and all(ms > 0 for ms in r["ms"])
+                assert all(p >= b > 0 for p, b in zip(r["peak_bytes"],
+                                                      r["base_bytes"]))
+        assert "," in out["card"]  # nvidia-smi's name, power limit
+
+
+def test_demo_core_on_the_card_matches_the_cpu(cuda):
+    """``demo.detect_image`` on a 320x320 BGR image, f32: the card's rows
+    the CPU's (same classes and order, scores 1e-4, pixels 1). The ODM
+    confidence head has zero weights and seeded biases, so the scores
+    order the candidates alike on both."""
+    model = build_refinedet("test", 320, 21, device=cuda, seed=0)
+    rng = np.random.RandomState(0)
+    with torch.no_grad():
+        for name, p in model.net.named_parameters():
+            if name.startswith("odm_conf."):
+                p.copy_(torch.from_numpy(rng.uniform(
+                    -4, 4, p.shape).astype(np.float32)) if name.endswith(
+                    "bias") else torch.zeros_like(p))
+            elif name.startswith(("arm_loc.", "odm_loc.")):
+                p.mul_(0.01)
+    host = model_on(model, "cpu")
+    img = rng.randint(0, 256, (320, 320, 3)).astype(np.uint8)
+    before = nms_cuda.nms_sweep.launches
+    got = demo.detect_image(model, img, 0.2)
+    assert nms_cuda.nms_sweep.launches == before + 1
+    want = demo.detect_image(host, img, 0.2)
+    assert len(got) == len(want) > 0
+    for (c, s, b), (wc, ws, wb) in zip(got, want):
+        assert c == wc and abs(s - ws) <= 1e-4
+        assert max(abs(p - q) for p, q in zip(b, wb)) <= 1

@@ -195,10 +195,12 @@ def test_port_imports_no_jax():
             pkg / "quant" / "__init__.py", pkg / "ops" / "int8_conv.py",
             pkg / "ops" / "cuda_build.py", pkg / "utils" / "timer.py",
             pkg / "utils" / "trace_summary.py",
-            pkg / "models" / "initializers.py"} | {
+            pkg / "models" / "initializers.py",
+            pkg / "models" / "stem_s2d.py"} | {
         pkg / "tools" / f"{t}.py" for t in (
             "trace_infer", "trace_train_step", "profile_train_step",
-            "flops_train_step")} <= set(files)
+            "flops_train_step", "bench_stem_s2d", "bench_pool_backward",
+            "ab_turns", "demo", "live")} <= set(files)
     for path in files:
         for name in _imports(path):
             root = name.split(".")[0]
@@ -226,7 +228,11 @@ def test_port_imports_without_cv2():
         "'refinedet_tpu_torch.eval.cli_voc', "
         "'refinedet_tpu_torch.eval.evaluator', "
         "'refinedet_tpu_torch.ops.nms_native', "
-        "'refinedet_tpu_torch.tools.eval_check'} <= set(names)\n"
+        "'refinedet_tpu_torch.tools.eval_check', "
+        "'refinedet_tpu_torch.tools.demo', "
+        "'refinedet_tpu_torch.tools.live'} <= set(names)\n"
+        "from refinedet_tpu_torch.tools import demo\n"
+        "assert demo.cv2 is None\n"
         "from refinedet_tpu_torch.data import augmentations\n"
         "assert augmentations.cv2 is None\n"
         "from refinedet_tpu_torch.tools.eval_check import SyntheticVOC\n"
