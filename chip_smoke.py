@@ -1701,6 +1701,7 @@ def int8_phase(dev: torch.device, smi: str, rng) -> tuple:
     every = int8_bench.distinct(int8_bench.conv_shapes(SIZE, NUM_CLASSES))
     every512 = int8_bench.distinct(int8_bench.conv_shapes(SSDD_SIZE, 2))
     worst, compared, split_cases = 0.0, 0, 0
+    apart, f32_outputs = 0, 0
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     sets = [(SIZE, b, every) for b in INT8_CHECK_BATCHES]
     sets.append((SSDD_SIZE, INT8_CHECK_512_BATCH, every512))
@@ -1711,7 +1712,7 @@ def int8_phase(dev: torch.device, smi: str, rng) -> tuple:
             k, s, p, d = case["geom"]
             split_cases += int8_conv.plan(
                 b, *case["hwc"], case["o"], k, s, p, d, sms).splits > 1
-            for dtype in (torch.int32, bf16):
+            for dtype in (torch.int32, torch.float32, bf16):
                 got = op(xq, w, ws, bias, s, p, d, dtype)
                 want = plain(xq, w, ws, bias, s, p, d, dtype)
                 err = float((got.double() - want.double()).abs().max())
@@ -1720,13 +1721,26 @@ def int8_phase(dev: torch.device, smi: str, rng) -> tuple:
                 check(torch.equal(got, want), f"11a: int8 conv {size} "
                       f"{case['names']} batch {b} {dtype}: max abs err "
                       f"{err} against the plain version")
-    del xq, w, ws, bias, got, want
+                if dtype == torch.int32:
+                    sums = got
+                elif dtype == torch.float32:
+                    # the product and the sum rounded apart: where that
+                    # differs, only one rounding (the FMA) matches
+                    twice = sums.float() * ws + bias
+                    apart += int((twice != want).sum())
+                    f32_outputs += want.numel()
+    del xq, w, ws, bias, got, want, sums, twice
+    check(apart > 0, "11a: no float32 output tells one rounding from two")
     log("int8", f"11a: {len(every)} distinct convs of the 320 set "
         f"(quant_skip=()) at batches {list(INT8_CHECK_BATCHES)} and "
         f"{len(every512)} of the 512 set at batch {INT8_CHECK_512_BATCH}: "
-        f"int32 sums and bf16 outputs bitwise equal to the plain version "
-        f"({compared} comparisons, {split_cases} of {compared // 2} shapes "
-        f"with K split, {time.perf_counter() - t0:.1f} s)")
+        f"int32 sums, float32 and bf16 outputs bitwise equal to the plain "
+        f"version ({compared} comparisons, {split_cases} of "
+        f"{compared // 3} shapes with K split; {apart} of {f32_outputs} "
+        f"float32 outputs ({100 * apart / f32_outputs:.2f}%) differ from "
+        f"the product and sum rounded apart; "
+        f"{time.perf_counter() - t0:.1f} s)")
+    out["int8_conv_f32_apart"] = [apart, f32_outputs]
     t0 = time.perf_counter()
     served_convs = int8_bench.conv_shapes(SIZE, NUM_CLASSES,
                                           DEFAULT_QUANT_SKIP)

@@ -39,11 +39,12 @@
 //    2^31), so the result is bitwise the unsplit one. The tile plan (box,
 //    N tile, BK, splits, grid, stages) is computed in Python
 //    (ops/int8_conv.py:plan) and handed to the launch.
-//  * Epilogue in registers: out = float(acc) * w_scale[o] + bias[o],
-//    rounded at each step (__fmul_rn, __fadd_rn: no FMA contraction), then
-//    __float2bfloat16_rn or float32, or the raw int32 sums (a check mode):
-//    the plain version's order of operations (ops/int8_conv.py), so the
-//    two agree bit for bit. A tile row maps to (b, oh, ow) through the box;
+//  * Epilogue in registers: out = float(acc) * w_scale[o] + bias[o] as
+//    one fused multiply-add, rounded once (__fmaf_rn), as XLA computes
+//    QuantConv's epilogue, then __float2bfloat16_rn or float32, or the raw
+//    int32 sums (a check mode). The plain version computes the same FMA
+//    exactly in float64 (ops/int8_conv.py:fma_f32), so the two agree bit
+//    for bit. A tile row maps to (b, oh, ow) through the box;
 //    rows outside the output are masked.
 //
 // What bounds it on this card: operations. At RefineDet320, batch 32, the
@@ -354,7 +355,7 @@ __device__ __forceinline__ void wgmma_k32(int* d, uint64_t a, uint64_t b,
 }
 
 __device__ __forceinline__ float epilogue(int acc, float scale, float bias) {
-  return __fadd_rn(__fmul_rn(__int2float_rn(acc), scale), bias);
+  return __fmaf_rn(__int2float_rn(acc), scale, bias);
 }
 
 // Two neighbouring output channels `col`, `col + 1` of one pixel at `at`.

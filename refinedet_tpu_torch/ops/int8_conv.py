@@ -13,8 +13,9 @@ The source says what bounds it.
 Contract: ``xq [B, H, W, C]`` int8 (NHWC), ``w [O, kh, kw, C]`` int8,
 ``w_scale`` and ``bias`` float32 ``[O]``, a square kernel's stride, padding
 and dilation -> ``[B, Ho, Wo, O]`` in ``out_dtype``: float32 or bfloat16
-``float(acc) * w_scale + bias`` (rounded after the product and after the
-sum), or with ``torch.int32`` the exact int32 sums themselves. On the card
+``float(acc) * w_scale + bias`` rounded once, as one fused multiply-add
+(XLA computes ``QuantConv``'s epilogue so), or with ``torch.int32`` the
+exact int32 sums themselves. On the card
 C must be a multiple of 32, O of 64, the stride 1 or 2, and the input at
 least as wide and high as the stride.
 
@@ -322,17 +323,40 @@ def int8_conv_accumulate(xq: torch.Tensor, w: torch.Tensor, stride: int,
     return y.permute(0, 2, 3, 1).to(torch.int32).contiguous()
 
 
+def fma_f32(a: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` of float32 tensors rounded once to float32, as one
+    fused multiply-add (``fmaf``), computed in float64 on any device.
+
+    The product is exact in float64 (24 + 24 significant bits). The sum
+    ``s`` is rounded to 53 bits; TwoSum gives its exact error ``e``. Where
+    ``e`` is not 0 and ``s``'s last significand bit is even, ``s`` steps
+    one float64 ulp toward ``e``: that rounds the exact sum to odd. Rounding
+    to odd at 53 bits, then to nearest at 24, is one rounding to nearest
+    at 24 (Boldo and Melquiond, 2008). A bare float64 sum rounds twice and
+    misses where it lands on a float32 halfway point."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(e > 0, torch.inf, -torch.inf).to(s)
+    s = torch.where((e != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
 def int8_conv_reference(xq: torch.Tensor, w: torch.Tensor,
                         w_scale: torch.Tensor, bias: torch.Tensor,
                         stride: int, padding: int, dilation: int,
                         out_dtype: torch.dtype) -> torch.Tensor:
     """The plain version: ``int8_conv_accumulate``, then
-    ``(acc.float() * w_scale + bias).to(out_dtype)``, two roundings as in
-    the kernel's epilogue (``torch.int32``: the sums)."""
+    ``fma_f32(acc.float(), w_scale, bias).to(out_dtype)``, one rounding as
+    in the kernel's epilogue (``torch.int32``: the sums)."""
     acc = int8_conv_accumulate(xq, w, stride, padding, dilation)
     if out_dtype == torch.int32:
         return acc
-    return (acc.float() * w_scale + bias).to(out_dtype)
+    return fma_f32(acc.float(), w_scale, bias).to(out_dtype)
 
 
 @torch.library.custom_op("refinedet_tpu_torch::int8_conv", mutates_args=(),

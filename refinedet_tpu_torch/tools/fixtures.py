@@ -28,6 +28,13 @@ they are the only ones:
     grey level of each other, tested). ``BaseTransform`` then meets an
     image already at its size and needs no cv2.
 
+One writer makes files, as the JAX repo's does: ``make_voc_dataset``, the
+port's copy of ``tests/data_fixtures.py:make_voc_dataset`` (a VOCdevkit
+tree of JPEGs, XML annotations and an image-set list, with the same
+``RandomState`` calls and silhouettes), for the VOC smoke through the real
+CLIs (``tools/smoke_voc_e2e.py``). It draws and encodes through cv2, which
+it imports when called: without cv2 it stops with an error that says so.
+
 The training targets are the boxes as ``COCODetection`` sanitizes them at
 160² (x2 = x1 + w - 1, y2 = y1 + h - 1), divided by 160, as the JAX tools
 compute them (``tools/smoke_e2e.py:22-28``). The eval ground truth is in
@@ -38,6 +45,8 @@ Evaluator scales by the held image's size.
 
 from __future__ import annotations
 
+import os
+import os.path as osp
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -181,3 +190,91 @@ def multiclass_fixture(size: int,
     at ``size`` (4 classes with background)."""
     return FixtureDetection("fixture_multiclass16", multiclass_draws(), size,
                             device)
+
+
+def need_cv2(tool: str):
+    """The cv2 module; without it a ``RuntimeError`` naming ``tool``."""
+    try:
+        import cv2
+    except ImportError:  # the card's host has no image decoder
+        raise RuntimeError(f"{tool} writes and reads JPEGs through cv2 "
+                           "(opencv-python), which is not installed") \
+            from None
+    return cv2
+
+
+def _draw_class_pattern(cv2, img, x, y, w, h, pattern):
+    """One object of value 220 whose class is its silhouette (colour is
+    randomized by the photometric augmentation, fine texture erased by
+    Expand's shrink): 0 = filled rect, 1 = filled ellipse, 2 = filled
+    triangle, 3 = thick cross."""
+    v = 220
+    k = pattern % 4
+    if k == 0:
+        img[y:y + h, x:x + w] = v
+    elif k == 1:
+        cv2.ellipse(img, (x + w // 2, y + h // 2), (w // 2, h // 2),
+                    0, 0, 360, (v, v, v), -1)
+    elif k == 2:
+        pts = np.array([[x + w // 2, y], [x, y + h - 1],
+                        [x + w - 1, y + h - 1]], np.int32)
+        cv2.fillPoly(img, [pts], (v, v, v))
+    else:
+        tw, th = max(3, w // 3), max(3, h // 3)
+        cx, cy = x + (w - tw) // 2, y + (h - th) // 2
+        img[y:y + h, cx:cx + tw] = v
+        img[cy:cy + th, x:x + w] = v
+
+
+def make_voc_dataset(root: str, year: str = "2007",
+                     image_set: str = "trainval", num_images: int = 4,
+                     img_size: int = 96, seed: int = 0,
+                     classes: Sequence[str] = ("aeroplane", "bicycle"),
+                     class_patterns: bool = False) -> List[str]:
+    """Write ``root/VOC<year>``: ``JPEGImages/<id>.jpg`` (noise in [0, 80)
+    with 1-2 objects of value 220), ``Annotations/<id>.xml`` (1-based
+    inclusive boxes, none difficult) and ``ImageSets/Main/<image_set>.txt``;
+    returns the ids. The objects are rectangles at least 14 px wide and
+    high, or with ``class_patterns`` each class's silhouette, at least a
+    quarter of the image wide and high."""
+    cv2 = need_cv2("make_voc_dataset")
+    rng = np.random.RandomState(seed)
+    base = osp.join(root, "VOC" + year)
+    for sub in ("JPEGImages", "Annotations",
+                osp.join("ImageSets", "Main")):
+        os.makedirs(osp.join(base, sub), exist_ok=True)
+    ids = []
+    for i in range(num_images):
+        img_id = f"{i:06d}"
+        ids.append(img_id)
+        img = rng.randint(0, 80, (img_size, img_size, 3)).astype(np.uint8)
+        objs = []
+        for _ in range(rng.randint(1, 3)):
+            lo = img_size // 4 if class_patterns else 14
+            w = rng.randint(lo, img_size // 2)
+            h = rng.randint(lo, img_size // 2)
+            x = rng.randint(0, img_size - w)
+            y = rng.randint(0, img_size - h)
+            ci = rng.randint(len(classes))
+            if class_patterns:
+                _draw_class_pattern(cv2, img, x, y, w, h, ci)
+            else:
+                img[y:y + h, x:x + w] = 220
+            rng.uniform()  # the JAX writer's draw for the difficult flag
+            objs.append(
+                f"<object><name>{classes[ci]}</name><pose>Unspecified</pose>"
+                f"<truncated>0</truncated><difficult>0</difficult>"
+                f"<bndbox><xmin>{x + 1}</xmin><ymin>{y + 1}</ymin>"
+                f"<xmax>{x + w}</xmax><ymax>{y + h}</ymax></bndbox>"
+                f"</object>")
+        cv2.imwrite(osp.join(base, "JPEGImages", img_id + ".jpg"), img)
+        xml = (f"<annotation><filename>{img_id}.jpg</filename>"
+               f"<size><width>{img_size}</width>"
+               f"<height>{img_size}</height><depth>3</depth></size>"
+               + "".join(objs) + "</annotation>")
+        with open(osp.join(base, "Annotations", img_id + ".xml"), "w") as f:
+            f.write(xml)
+    with open(osp.join(base, "ImageSets", "Main", image_set + ".txt"),
+              "w") as f:
+        f.write("\n".join(ids) + "\n")
+    return ids

@@ -11,10 +11,14 @@ jitted once for the module (``calibrate_amax`` and ``accumulate_hessians``
 each compile one forward; the int8 and f32 heads one each).
 
 Tolerances, each beside what it measured:
-  * one quantized conv, float32 in: the int8 input and the int32
-    accumulators exact; the output within 1 float32 ulp of the larger of
-    the product ``acc * w_scale`` and the output (XLA fuses the epilogue's
-    multiply-add into one FMA, the port and its kernel round twice).
+  * one quantized conv, float32 in: the int8 input, the int32
+    accumulators and the output bitwise, in float32 and in bfloat16 (XLA
+    fuses the epilogue's multiply-add into one FMA; the port's plain
+    version computes that FMA exactly, ``ops/int8_conv.py:fma_f32``, and
+    its kernel runs ``__fmaf_rn``). The epilogue alone bitwise against the
+    jitted JAX expression on 1e5 random entries and on constructed
+    halfway cases, where rounding twice and a bare float64 sum both
+    miss.
   * calibration statistics and means rtol 1e-5, with an absolute floor
     of 1e-5 of the conv's largest statistic (oneDNN and XLA compute the
     float32 activations in different orders; the worst entry measured
@@ -133,8 +137,8 @@ def test_reference_exact_against_int64_im2col(geom):
 @pytest.mark.parametrize("geom", GEOMETRIES, ids=lambda g: "k{}s{}p{}d{}"
                          .format(*g))
 def test_quantconv_matches_jax(geom):
-    """Same int8 parameters: the int8 input and the int32 sums exact, the
-    output within 1 float32 ulp."""
+    """Same int8 parameters: the int8 input, the int32 sums and the output
+    bitwise, in float32 and in bfloat16."""
     k, s, p, d = geom
     rng = np.random.RandomState(10 + sum(geom))
     cin, cout = 64, 128
@@ -171,18 +175,78 @@ def test_quantconv_matches_jax(geom):
     np.testing.assert_array_equal(acc.numpy(), np.asarray(jacc))
     got = conv(xt).permute(0, 2, 3, 1).numpy()
     assert got.shape == want.shape and got.dtype == np.float32
-    # The port rounds the product, then the sum; XLA fuses them into one
-    # FMA (JAX's output is the exact product-sum, rounded once). They
-    # differ by at most 1 ulp of the larger of the product and the output.
-    prod = acc.numpy().astype(np.float32) * params["w_scale"]
-    np.testing.assert_array_equal(got, prod + params["bias"])
-    fma = (acc.numpy().astype(np.float64) * params["w_scale"]
-           + params["bias"]).astype(np.float32)
-    assert (want == fma).mean() > 0.999
-    ulp = np.spacing(np.maximum(np.abs(prod), np.abs(want)))
-    assert np.all(np.abs(got - want) <= ulp), np.abs(got - want).max()
+    np.testing.assert_array_equal(got, want)
+    # rounding the product, then the sum, would miss JAX's FMA
+    twice = acc.numpy().astype(np.float32) * params["w_scale"] \
+        + params["bias"]
+    assert (twice != want).any()
+
+    jconv16 = JQuantConv(features=cout, kernel=k, strides=s, padding=p,
+                         dilation=d, dtype=jnp.bfloat16)
+    want16 = jax.jit(jconv16.apply)({"params": params}, x)
     with torch.autocast("cpu", dtype=torch.bfloat16):
-        assert conv(xt).dtype == torch.bfloat16
+        got16 = conv(xt).permute(0, 2, 3, 1)
+    assert got16.dtype == torch.bfloat16 and want16.dtype == jnp.bfloat16
+    np.testing.assert_array_equal(got16.float().numpy(),
+                                  np.asarray(want16, np.float32))
+
+
+def _halfway_cases():
+    """(acc, w_scale, bias) whose exact ``acc * w_scale`` lies halfway
+    between two float32 values and whose bias, a tiny nudge, decides the
+    side: 4097 * 4097 * 2^-24 = 1 + 2^-11 + 2^-24 (the lower neighbour's
+    last bit even) nudged up, 4097 * 4099 * 2^-24 = 1 + 8193 * 2^-23 +
+    2^-24 (odd) nudged down, each mirrored and at several exponents.
+    Rounded twice, the product goes to the even neighbour and the nudge
+    is lost; a bare float64 sum lands on the halfway point itself."""
+    rows = []
+    for b, nudge in ((4097, 2.0 ** -60), (4099, -(2.0 ** -60))):
+        for e in (-30, 0, 7):
+            for sign in (1, -1):
+                rows.append((sign * 4097, b * 2.0 ** (e - 24),
+                             sign * nudge * 2.0 ** e))
+    acc, w_scale, bias = zip(*rows)
+    return (np.array(acc, np.int32), np.array(w_scale, np.float32),
+            np.array(bias, np.float32))
+
+
+def test_fma_epilogue_matches_jax():
+    """``int8_conv_reference``'s epilogue (``fma_f32``) against JAX's
+    jitted ``y.astype(f32) * w_scale + bias``, bitwise: on 1e5 random
+    int32 sums, scales and biases, and on the constructed halfway cases,
+    where the two-rounding form and a bare float64 sum both differ from
+    JAX."""
+    jepilogue = jax.jit(lambda y, s, b: y.astype(jnp.float32) * s + b)
+    rng = np.random.RandomState(0)
+    n = 100_000
+    acc = rng.randint(-2 ** 24, 2 ** 24, n).astype(np.int32)
+    acc[::3] = rng.randint(-127 * 127 * 9, 127 * 127 * 9, acc[::3].size)
+    w_scale = rng.uniform(1e-5, 1e-1, n).astype(np.float32)
+    bias = (rng.randn(n) * rng.choice([1e-3, 1.0, 1e2], n)).astype(
+        np.float32)
+    for a, s, b, halfway in ((acc, w_scale, bias, False),
+                             (*_halfway_cases(), True)):
+        want = np.asarray(jepilogue(a, s, b))
+        got = port_int8.fma_f32(torch.from_numpy(a).float(),
+                                torch.from_numpy(s), torch.from_numpy(b))
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), want)
+        twice = a.astype(np.float32) * s + b
+        bare = (a.astype(np.float64) * s + b).astype(np.float32)
+        if halfway:
+            assert np.all(twice != want) and np.all(bare != want)
+        else:  # about a fifth of these tell one rounding from two
+            assert (twice != want).mean() > 0.1
+    # the whole plain version on two such entries: a 1x1 conv of one
+    # pixel whose sums are 32 * 127 + 33 = 4097
+    xq = torch.tensor([127] * 32 + [33], dtype=torch.int8).view(1, 1, 1, 33)
+    a, s, b = (v[[0, 6]] for v in _halfway_cases())
+    got = port_int8.int8_conv_reference(
+        xq, torch.ones(2, 1, 1, 33, dtype=torch.int8), torch.from_numpy(s),
+        torch.from_numpy(b), 1, 0, 1, torch.float32)
+    assert a.tolist() == [4097, 4097]
+    np.testing.assert_array_equal(got.view(2).numpy(),
+                                  np.asarray(jepilogue(a, s, b)))
 
 
 def test_int8_conv_refusals():

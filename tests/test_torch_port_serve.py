@@ -200,7 +200,8 @@ def test_port_imports_no_jax():
         pkg / "tools" / f"{t}.py" for t in (
             "trace_infer", "trace_train_step", "profile_train_step",
             "flops_train_step", "bench_stem_s2d", "bench_pool_backward",
-            "ab_turns", "demo", "live")} <= set(files)
+            "ab_turns", "demo", "live", "fixtures",
+            "smoke_voc_e2e")} <= set(files)
     for path in files:
         for name in _imports(path):
             root = name.split(".")[0]
@@ -230,7 +231,8 @@ def test_port_imports_without_cv2():
         "'refinedet_tpu_torch.ops.nms_native', "
         "'refinedet_tpu_torch.tools.eval_check', "
         "'refinedet_tpu_torch.tools.demo', "
-        "'refinedet_tpu_torch.tools.live'} <= set(names)\n"
+        "'refinedet_tpu_torch.tools.live', "
+        "'refinedet_tpu_torch.tools.smoke_voc_e2e'} <= set(names)\n"
         "from refinedet_tpu_torch.tools import demo\n"
         "assert demo.cv2 is None\n"
         "from refinedet_tpu_torch.data import augmentations\n"

@@ -18,7 +18,11 @@ against the JAX repo's ``tools/*.py`` and test fixtures, on the CPU.
   the results sidecar;
 * the slice against JAX: ``fixture_train.ap_of`` and JAX's Evaluator with
   ``evaluate_detections`` on the same converted weights and fixture
-  images (lossless PNGs for JAX): the same AP.
+  images (lossless PNGs for JAX): the same AP;
+* the VOC smoke through the real CLIs (``smoke_voc_e2e``): its fixture
+  writer's files byte for byte those of ``tests/data_fixtures.py:
+  make_voc_dataset``, and the argv it hands each CLI JAX's tool's (both
+  tools run with the CLIs and the writer stubbed: no training here).
 
 Every test that quantizes runs with one torch thread (a module fixture).
 """
@@ -26,6 +30,7 @@ Every test that quantizes runs with one torch thread (a module fixture).
 import ast
 import importlib.util
 import json
+import os
 import sys
 import types
 from pathlib import Path
@@ -53,7 +58,7 @@ from refinedet_tpu_torch.models.refinedet import \
     quantizable_names  # noqa: E402
 from refinedet_tpu_torch.tools import (ablate_ema, ablate_int8,  # noqa: E402
                                        bench_serve, fixture_train,
-                                       fixtures)
+                                       fixtures, smoke_voc_e2e)
 from refinedet_tpu_torch.tools.fixtures import (coco_draws,  # noqa: E402
                                                 coco_fixture,
                                                 multiclass_draws)
@@ -61,7 +66,7 @@ from refinedet_tpu_torch.tools.fixtures import (coco_draws,  # noqa: E402
 TOOLS = ("smoke_e2e", "smoke_multiclass", "smoke_int8", "ablate_int8",
          "calib_study", "ablate_ema", "bench_serve", "bench_int8",
          "int8_witness", "trace_infer", "trace_train_step",
-         "profile_train_step", "flops_train_step")
+         "profile_train_step", "flops_train_step", "smoke_voc_e2e")
 
 
 def _jax_tool(name):
@@ -177,6 +182,131 @@ def test_fixture_targets_equal_jax_tools(size, tmp_path):
     gt = ds._COCO.loadAnns(ds._COCO.getAnnIds())
     assert [a["bbox"] for a in gt] == [[v * s for v in a["bbox"]]
                                        for a in coco["annotations"]]
+
+
+@pytest.mark.parametrize("patterns", [False, True],
+                         ids=["rects", "silhouettes"])
+def test_make_voc_dataset_writes_jax_files(patterns, tmp_path):
+    """The port's VOC writer against ``tests/data_fixtures.py``'s: the same
+    ids, and every file (JPEGs, XML annotations, the image-set list) byte
+    for byte, at 64 px with every class drawn."""
+    kw = dict(year="2012", image_set="trainval", num_images=6, img_size=64,
+              seed=3, classes=smoke_voc_e2e.CLASSES,
+              class_patterns=patterns)
+    jax_root, port_root = tmp_path / "jax", tmp_path / "port"
+    want = data_fixtures.make_voc_dataset(str(jax_root), **kw)
+    assert fixtures.make_voc_dataset(str(port_root), **kw) == want
+
+    def files(root):
+        return sorted(p.relative_to(root) for p in root.rglob("*")
+                      if p.is_file())
+
+    names = files(jax_root)
+    assert files(port_root) == names and len(names) == 2 * 6 + 1
+    for name in names:
+        assert (port_root / name).read_bytes() == \
+            (jax_root / name).read_bytes(), name
+    xml = "".join(p.read_text() for p in
+                  (port_root / "VOC2012" / "Annotations").iterdir())
+    assert all(f"<name>{c}</name>" in xml for c in smoke_voc_e2e.CLASSES)
+
+
+@pytest.mark.parametrize("ap0", [0.5, 0.1], ids=["passes", "misses"])
+def test_smoke_voc_e2e_argv_matches_jax(ap0, tmp_path, monkeypatch,
+                                        capsys):
+    """Both tools on one work directory with ``--ema_decay 0.5``, the CLIs
+    and the fixture writer stubbed: the same writer calls, and each CLI's
+    argv, less ``--device cpu`` and the checkpoint's ``.pth``, JAX's. A
+    run that clears the threshold makes all four passes; one that misses
+    it stops after the first eval in both tools, the port's JSON line
+    printed first with the check that failed."""
+    jtool = _jax_tool("smoke_voc_e2e")
+    root = str(tmp_path)
+    aps = {c: ap0 + 0.1 * i for i, c in enumerate(smoke_voc_e2e.CLASSES)}
+    miss = ap0 + 0.15 < 0.30
+    calls = {"jax": [], "port": []}
+    writes = {"jax": [], "port": []}
+
+    def finish_training(argv, name):
+        save = argv[argv.index("--save_folder") + 1]
+        os.makedirs(save, exist_ok=True)
+        open(os.path.join(save, name), "w").close()
+
+    def jax_train():
+        calls["jax"].append(sys.argv[1:])
+        finish_training(sys.argv, "RefineDet320_VOC_epoches_final")
+
+    def jax_eval():
+        calls["jax"].append(sys.argv[1:])
+        return dict(aps)
+
+    def port_train(argv):
+        calls["port"].append(argv)
+        finish_training(argv, "RefineDet320_VOC_epoches_final.pth")
+
+    def port_eval(argv):
+        calls["port"].append(argv)
+        return dict(aps)
+
+    def writer(side):
+        return lambda *a, **k: writes[side].append((a, k))
+
+    monkeypatch.setitem(sys.modules, "train_refinedet",
+                        types.SimpleNamespace(main=jax_train))
+    monkeypatch.setitem(sys.modules, "eval_refinedet_voc",
+                        types.SimpleNamespace(main=jax_eval))
+    monkeypatch.setitem(sys.modules, "data_fixtures", types.SimpleNamespace(
+        make_voc_dataset=writer("jax")))
+    flags = ["--root", root, "--ema_decay", "0.5"]
+    monkeypatch.setattr(sys, "argv", ["smoke_voc_e2e.py"] + flags)
+    if miss:
+        with pytest.raises(AssertionError, match="below 0.3"):
+            jtool.main()
+    else:
+        jtool.main()
+
+    monkeypatch.setattr(smoke_voc_e2e, "make_voc_dataset", writer("port"))
+    monkeypatch.setattr(smoke_voc_e2e, "train_cli",
+                        types.SimpleNamespace(main=port_train))
+    monkeypatch.setattr(smoke_voc_e2e, "cli_voc",
+                        types.SimpleNamespace(main=port_eval))
+    capsys.readouterr()
+    if miss:
+        with pytest.raises(RuntimeError, match="below 0.3"):
+            smoke_voc_e2e.main(flags + ["--device", "cpu"])
+    else:
+        smoke_voc_e2e.main(flags + ["--device", "cpu"])
+    out = json.loads(capsys.readouterr().out.splitlines()[-1])
+
+    assert writes["port"] == writes["jax"] and len(writes["jax"]) == 3
+    assert len(calls["jax"]) == len(calls["port"]) == (2 if miss else 4)
+    if not miss:
+        assert calls["jax"][2].count("--use_ema") == 1
+        assert calls["jax"][3][-3:] == ["--int8", "--calib_images", "16"]
+    for want, got in zip(calls["jax"], calls["port"]):
+        assert got[-2:] == ["--device", "cpu"]
+        got = [a[:-len(".pth")] if a.endswith("_final.pth") else a
+               for a in got[:-2]]
+        assert got == want
+    mean = sum(aps.values()) / 4
+    assert out["mean_ap"] == pytest.approx(mean)
+    if miss:
+        assert out["failed"].startswith("mean AP") and out["int8"] is None
+    else:
+        assert out["failed"] is None
+        assert out["ema"]["delta"] == out["int8"]["drop"] == 0.0
+
+
+def test_smoke_voc_e2e_refuses_without_cv2(tmp_path, monkeypatch):
+    """Without cv2 the tool stops before it writes anything, and the
+    writer with an error that names it."""
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    with pytest.raises(RuntimeError, match="smoke_voc_e2e .*cv2"):
+        smoke_voc_e2e.main(["--device", "cpu", "--root", str(tmp_path)])
+    assert not os.listdir(tmp_path)
+    with pytest.raises(RuntimeError, match="make_voc_dataset .*cv2"):
+        fixtures.make_voc_dataset(str(tmp_path))
+    assert not os.listdir(tmp_path)
 
 
 # -- schedules ----------------------------------------------------------------
@@ -299,7 +429,8 @@ def _flags(path):
 
 
 @pytest.mark.parametrize("tool", ["ablate_int8", "calib_study",
-                                  "ablate_ema", "bench_serve"])
+                                  "ablate_ema", "bench_serve",
+                                  "smoke_voc_e2e"])
 def test_tool_flags_match_jax(tool):
     """The JAX tool's flags with its defaults, plus ``--device``."""
     want = _flags(REPO / "tools" / f"{tool}.py")
