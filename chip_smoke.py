@@ -2468,8 +2468,7 @@ def profile_phase(dev: torch.device, smi: str, rng) -> tuple:
                                            profile_train_step, trace_infer,
                                            trace_train_step)
     from refinedet_tpu_torch.tools.k1_bench import noise_images
-    from refinedet_tpu_torch.utils.timer import profile_trace, \
-        step_annotation
+    from refinedet_tpu_torch.utils.timer import profile_trace, span
     from refinedet_tpu_torch.utils.trace_summary import (format_summary,
                                                          trace_stats)
 
@@ -2563,9 +2562,9 @@ def profile_phase(dev: torch.device, smi: str, rng) -> tuple:
         for c in counters:
             c.launches = 0
         with profile_trace(logdir, dev):
-            with step_annotation("serve/fused_nms"):
+            with span("serve/fused_nms"):
                 serve(imgs)
-            with step_annotation("int8/forward"):
+            with span("int8/forward"):
                 model_q.raw_forward(x)
         launched = [c.launches for c in counters]
     stats = trace_stats(logdir)
@@ -2619,7 +2618,7 @@ def profile_phase(dev: torch.device, smi: str, rng) -> tuple:
         ms = cuda_ms(lambda: soft_nms(b, s, method=method), 5, warmup=1)
         logdir = os.path.join(folder, f"14f_{method}")
         with profile_trace(logdir, dev):
-            with step_annotation(f"soft_nms/{method}"):
+            with span(f"soft_nms/{method}"):
                 soft_nms(b, s, method=method)
         kernels = sum(trace_stats(logdir)["kernel_counts"].values())
         out["soft_nms"][method] = {"kept": int(keep.sum()), "ulps": ulps,

@@ -68,6 +68,7 @@ from refinedet_tpu_torch.detect.detection import detect_refinedet
 from refinedet_tpu_torch.device import resolve_device
 from refinedet_tpu_torch.ops import int8_conv, nms_cuda
 from refinedet_tpu_torch.ops.dispatch import class_parallel_nms
+from refinedet_tpu_torch.utils.timer import span
 
 PLATFORMS = ("cuda", "cpu")
 MAGIC = b"RDTPUTORCH1\n"
@@ -431,8 +432,10 @@ class BucketGraph:
     def replay(self, images: torch.Tensor):
         """Copy ``images`` (host) into the static input, replay, and
         return the static outputs (overwritten by the next replay)."""
-        self.static_in.copy_(images)
-        self.graph.replay()
+        with span("serve.h2d", device=True):
+            self.static_in.copy_(images)
+        with span("serve.replay"):
+            self.graph.replay()
         nms_cuda.nms_sweep.launches += self.launches
         int8_conv.int8_conv.launches += self.int8_launches
         int8_conv.int8_quantize.launches += self.quant_launches
@@ -444,7 +447,13 @@ class ServingModel:
     numpy, run under ``inference_mode`` on the device the program was
     exported for (``meta["device"]``).
     A call at a batch size ``warm_up`` captured replays its CUDA graph;
-    any other runs the exported program eagerly. Calls are serialized."""
+    any other runs the exported program eagerly. Calls are serialized
+    and counted (``calls``). Under a profiler a call records the span
+    ``serve.call`` (its id the call's count) around ``serve.h2d`` (the
+    copy into the graph's input) and ``serve.replay``, or
+    ``serve.eager``, then ``serve.d2h`` (the copy of the outputs to the
+    host, timed on the host alone: the copy blocks, so its time holds
+    the wait for the replay) (``utils/timer.span``)."""
 
     def __init__(self, meta: Dict, program: torch.export.ExportedProgram):
         self.meta = meta
@@ -455,6 +464,7 @@ class ServingModel:
         size = meta["input_size"]
         self.input_shape = (size, size, 3)
         self.graphs: Dict[int, BucketGraph] = {}
+        self.calls = 0
         self._lock = threading.Lock()
 
     def _check_batch(self, n: int) -> None:
@@ -474,10 +484,16 @@ class ServingModel:
         self._check_batch(images.shape[0])
         x = torch.from_numpy(np.ascontiguousarray(images))
         with self._lock, torch.inference_mode():
-            graph = self.graphs.get(images.shape[0])
-            if graph is not None:
-                return _numpy(graph.replay(x))
-            return _numpy(self.module(x.to(self.device)))
+            self.calls += 1
+            with span("serve.call", id=self.calls):
+                graph = self.graphs.get(images.shape[0])
+                if graph is not None:
+                    out = graph.replay(x)
+                else:
+                    with span("serve.eager"):
+                        out = self.module(x.to(self.device))
+                with span("serve.d2h"):
+                    return _numpy(out)
 
     def warm_up(self, batch_sizes: Sequence[int]) -> None:
         """Make each batch size ready before the first request: on the

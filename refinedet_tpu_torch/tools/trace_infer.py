@@ -11,7 +11,7 @@ seed 0, the full test-phase ``RefineDetModel.apply`` (backbone and
 heads, softmax, the objectness filter and the cascade decode, the
 reference's live ``Detect_RefineDet`` path) on seeded images uniform in
 [-120, 130). Three warm-up calls, then ``ITERS`` calls issued back to
-back, each under ``step_annotation``, the host waiting only at the end,
+back, each under a ``span``, the host waiting only at the end,
 under ``profile_trace``. The summary (``utils/trace_summary.py``) says
 how much of the device time is convolution and how much the rest
 (pooling, L2Norm, layout copies, the decode and softmax), each
@@ -32,7 +32,7 @@ import torch
 from refinedet_tpu_torch.device import resolve_device
 from refinedet_tpu_torch.models.builder import build_refinedet
 from refinedet_tpu_torch.tools.profile_train_step import device_name
-from refinedet_tpu_torch.utils.timer import profile_trace, step_annotation
+from refinedet_tpu_torch.utils.timer import profile_trace, span
 from refinedet_tpu_torch.utils.trace_summary import summarize
 
 SIZE = 320
@@ -64,7 +64,7 @@ def capture(logdir: str, batch: int, iters: int, device) -> str:
         out[0].cpu()
         with profile_trace(logdir, dev):
             for i in range(iters):  # back to back; the scope waits at its end
-                with step_annotation(f"infer/{i}"):
+                with span(f"infer/{i}"):
                     model.apply(images)
     return device_name(dev)
 

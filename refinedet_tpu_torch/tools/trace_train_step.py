@@ -9,13 +9,14 @@ The port of ``tools/trace_train_step.py`` (batch 128, 3 steps by
 default): ``train/train_step.py:make_train_step``'s step on RefineDet320,
 2 classes, bf16, ``max_boxes`` 8, the JAX tool's fixed boxes and labels
 (``profile_train_step.train_setup``). Three warm-up steps, then ``STEPS``
-steps issued back to back, each under ``step_annotation``, the host
-waiting only at the end, under ``profile_trace``. The summary
-(``utils/trace_summary.py``) gives each step's device ms, the device's
-idle gaps between steps, the idle % of the traced window and the split
-of device time by the aten op that launched each kernel. It is printed
-and written beside the trace directory (``<dir>.md``), which is a fresh
-temporary directory; ``--summarize`` re-reads an existing one.
+steps issued back to back, each under the step's own ``train.step``
+span, the host waiting only at the end, under ``profile_trace``. The
+summary (``utils/trace_summary.py``) gives each step's device ms, the
+device's idle gaps between steps, the idle % of the traced window and
+the split of device time by the aten op that launched each kernel. It
+is printed and written beside the trace directory (``<dir>.md``),
+which is a fresh temporary directory; ``--summarize`` re-reads an
+existing one.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from refinedet_tpu_torch.tools.profile_train_step import (device_name,
                                                           train_setup)
 from refinedet_tpu_torch.train.train_step import (create_train_state,
                                                   make_train_step)
-from refinedet_tpu_torch.utils.timer import profile_trace, step_annotation
+from refinedet_tpu_torch.utils.timer import profile_trace
 from refinedet_tpu_torch.utils.trace_summary import summarize
 
 WARMUP = 3
@@ -59,9 +60,8 @@ def capture(logdir: str, batch: int, steps: int, device) -> str:
         state, metrics = step(state, images, boxes, labels, valid)
     float(metrics["loss"])
     with profile_trace(logdir, dev):
-        for i in range(steps):  # back to back; the scope waits at its end
-            with step_annotation(f"train_step/{i}"):
-                state, metrics = step(state, images, boxes, labels, valid)
+        for _ in range(steps):  # back to back; the scope waits at its end
+            state, metrics = step(state, images, boxes, labels, valid)
     return device_name(dev)
 
 

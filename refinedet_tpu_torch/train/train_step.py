@@ -57,6 +57,7 @@ from refinedet_tpu_torch.parallel.mesh import (image_band, make_grid,
                                                shard_batch)
 from refinedet_tpu_torch.parallel.spatial import (SpatialContext,
                                                   spatial_plan)
+from refinedet_tpu_torch.utils.timer import span
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -202,7 +203,14 @@ def make_train_step(model, optimizer: SGD, train_cfg: TrainConfig,
     band of them after the augmentation. The BN layers sync over the
     ranks that hold their rows once (``SpatialContext.sync_batch_norm``).
     The returned step's ``spatial`` is the context (None at S = 1),
-    whose ``bytes`` count the halo and gather traffic."""
+    whose ``bytes`` count the halo and gather traffic.
+
+    Under a profiler the step records the span ``train.step`` (its id
+    the step count) and five children that tile it in order:
+    ``train.augment``, ``train.forward`` (``zero_grad`` and the net),
+    ``train.loss`` (matching and the mined losses), ``train.backward``
+    and ``train.optimizer`` (clip, SGD and the EMA), each timed on the
+    card when the images are there (``utils/timer.span``)."""
     ema_decay = float(train_cfg.ema_decay)
     net, spatial = None, None
     data_group, data_world, data_rank = group, 1, 0
@@ -224,34 +232,44 @@ def make_train_step(model, optimizer: SGD, train_cfg: TrainConfig,
                                       broadcast_buffers=False)
 
     def step(state: TrainState, images, boxes, labels, valid):
-        if train_cfg.on_device_augment:
-            draws = sample_draws(step_generator(
-                train_cfg.seed, state.step, images.device),
-                images.shape[0] * data_world)
-            if data_group is not None:
-                draws = shard_batch(draws, data_rank, data_world)
-            images, boxes, valid = augment_batch(
-                images, boxes, valid, draws, out_size=model.size,
-                mean=train_cfg.mean)
-        if spatial is not None:
-            images = image_band(images, spatial.index, spatial.shards)
-        optimizer.zero_grad(set_to_none=True)
-        # Train mode: the BN variant normalises with the batch statistics
-        # and moves its running ones, as the JAX step's mutable
-        # batch_stats do.
-        heads = model.raw_forward(images, train=True, net=net,
-                                  spatial=spatial)
-        loss, metrics = train_losses(model, heads, boxes, labels, valid,
-                                     train_cfg, data_group)
-        # DDP averages the ranks' gradients; the global loss is the sum
-        # of the data groups' shares.
-        (loss * data_world if group is not None else loss).backward()
-        optimizer.apply_gradients(state.step)
-        if ema_decay > 0:
-            if state.ema is None:
-                raise ValueError("ema_decay > 0 needs a state with an EMA "
-                                 "(create_train_state(..., ema=True))")
-            ema_update_(state.ema, model.net, state.step + 1, ema_decay)
+        card = images.is_cuda
+        with span("train.step", id=state.step):
+            with span("train.augment", device=card):
+                if train_cfg.on_device_augment:
+                    draws = sample_draws(step_generator(
+                        train_cfg.seed, state.step, images.device),
+                        images.shape[0] * data_world)
+                    if data_group is not None:
+                        draws = shard_batch(draws, data_rank, data_world)
+                    images, boxes, valid = augment_batch(
+                        images, boxes, valid, draws, out_size=model.size,
+                        mean=train_cfg.mean)
+                if spatial is not None:
+                    images = image_band(images, spatial.index,
+                                        spatial.shards)
+            with span("train.forward", device=card):
+                optimizer.zero_grad(set_to_none=True)
+                # Train mode: the BN variant normalises with the batch
+                # statistics and moves its running ones, as the JAX
+                # step's mutable batch_stats do.
+                heads = model.raw_forward(images, train=True, net=net,
+                                          spatial=spatial)
+            with span("train.loss", device=card):
+                loss, metrics = train_losses(model, heads, boxes, labels,
+                                             valid, train_cfg, data_group)
+            with span("train.backward", device=card):
+                # DDP averages the ranks' gradients; the global loss is
+                # the sum of the data groups' shares.
+                (loss * data_world if group is not None else loss).backward()
+            with span("train.optimizer", device=card):
+                optimizer.apply_gradients(state.step)
+                if ema_decay > 0:
+                    if state.ema is None:
+                        raise ValueError(
+                            "ema_decay > 0 needs a state with an EMA "
+                            "(create_train_state(..., ema=True))")
+                    ema_update_(state.ema, model.net, state.step + 1,
+                                ema_decay)
         return dataclasses.replace(state, step=state.step + 1), metrics
 
     step.spatial = spatial

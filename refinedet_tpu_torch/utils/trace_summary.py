@@ -4,11 +4,12 @@ The port's counterpart of the JAX repo's ``tools/xplane_summary.py``: it
 reads the ``*.pt.trace.json`` that ``utils/timer.profile_trace`` writes
 (the newest one under a directory) and reports, on the card:
 
-  * per annotated execution (each ``step_annotation`` range on the host)
-    the card's kernels, copies and fills it launched, tied to it through
-    the correlation id of the launch (the runtime call inside the range),
-    their union as the execution's device-busy ms, and the gap from its
-    last device event to the next execution's first;
+  * per annotated execution (each top-level ``utils/timer.span`` range
+    on the host) the card's kernels, copies and fills it launched, tied
+    to it through the correlation id of the launch (the runtime call
+    inside the range), their union as the execution's device-busy ms,
+    and the gap from its last device event to the next execution's
+    first;
   * device busy over the traced span (the first execution's first device
     event to the last one's last) as the idle %, and with the batch the
     images/s the device time implies;
@@ -242,7 +243,7 @@ def trace_stats(logdir: str, device: DeviceLike = "cuda") -> dict:
                      "busy_ns": _union_ns(iv), "events": len(iv)})
     if not rows:
         raise RuntimeError(f"{path}: no device event falls inside a "
-                           "step_annotation range")
+                           "top-level span")
     gaps = [(b["first"] - a["last"]) / 1e6 for a, b in zip(rows, rows[1:])]
     span = rows[-1]["last"] - rows[0]["first"]
     busy = _union_ns([iv for ivs in per_exec for iv in ivs])
@@ -270,7 +271,7 @@ def _cpu_stats(path: str, execs: List[dict], ops: List[dict]) -> dict:
     """Host-side numbers of a CPU trace: per execution its ms, and each
     op's self time (its range less its children's) by category."""
     if not execs:
-        raise RuntimeError(f"{path}: no step_annotation range")
+        raise RuntimeError(f"{path}: no top-level span")
     by_tid = defaultdict(list)
     for op in ops:
         by_tid[(op["pid"], op["tid"])].append(

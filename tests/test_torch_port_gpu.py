@@ -19,10 +19,12 @@ synced BN, equal to the ungrouped one), and the trained-fixture tools
 its AP through K1, ``bench_serve`` with 8 requests), the artifact's two
 programs (the card's and the CPU's, each exact on its device), the
 on-device ``soft_nms`` against the CPU (no host sync),
-``profile_trace`` seeing one K1 launch under its op, the space-to-depth
-stem twin against the standard net, the slice max-pool backward bitwise
-against ATen's (and filed under the pool's backward in a trace), the two
-bench tools at a small size, and the demo's core against the CPU.
+``profile_trace`` seeing one K1 launch under its op, the program's spans
+(no host sync; the step's phases and the call's copies timed), the
+space-to-depth stem twin against the standard net, the slice max-pool
+backward bitwise against ATen's (and filed under the pool's backward in
+a trace), the two bench tools at a small size, and the demo's core
+against the CPU.
 
 They skip without a CUDA card. On the card::
 
@@ -30,6 +32,8 @@ They skip without a CUDA card. On the card::
 
 This file imports no JAX, so it also runs where JAX is not installed.
 """
+
+import collections
 
 import numpy as np
 import pytest
@@ -79,7 +83,8 @@ from refinedet_tpu_torch.tools.train_check import (SyntheticDetection,
                                                    update_rel_errors)
 from refinedet_tpu_torch.train import (Trainer, create_train_state,
                                        make_optimizer, make_train_step)
-from refinedet_tpu_torch.utils.timer import profile_trace, step_annotation
+from refinedet_tpu_torch.utils import timer
+from refinedet_tpu_torch.utils.timer import profile_trace, span
 from refinedet_tpu_torch.utils.trace_summary import trace_stats
 
 pytestmark = pytest.mark.gpu
@@ -930,13 +935,70 @@ def test_profile_trace_sees_one_k1_launch(cuda, tmp_path):
     nms_cuda.nms_sweep(boxes, valid, 0.45)  # build and warm up
     before = nms_cuda.nms_sweep.launches
     with profile_trace(str(tmp_path)):
-        with step_annotation("k1"):
+        with span("k1"):
             nms_cuda.nms_sweep(boxes, valid, 0.45)
     assert nms_cuda.nms_sweep.launches == before + 1
     stats = trace_stats(str(tmp_path))
     assert stats["handwritten_calls"] == {"nms_sweep (K1)": 1}
     assert stats["categories_ms"]["nms_sweep (K1)"] > 0
     assert [x["name"] for x in stats["executions"]] == ["k1"]
+
+
+def test_spans_on_the_card_add_no_sync(cuda, card_artifact, tmp_path,
+                                       monkeypatch):
+    """Under the profiler, in ``set_sync_debug_mode("error")``, a train
+    step and a graph replay (its input already on the card, so the copy
+    in is a device copy) raise nothing: the spans' events add no host
+    wait. Then a whole call into the artifact, whose blocking copies in
+    and out are the call's own, outside the debug mode: ``serve.call``
+    around ``serve.h2d``, ``serve.replay`` and ``serve.d2h``, the copy
+    in timed on the card (the replay and the blocking copy out on the
+    host alone), and the step's five phases timed on the card."""
+    monkeypatch.setattr(timer, "_ring", collections.deque(
+        maxlen=timer.SPAN_RING))
+    _, _, serving, _ = card_artifact
+    if 2 not in serving.graphs:
+        serving.warm_up([2])
+    model = build_refinedet("train", 320, 21, device=cuda,
+                            dtype=torch.bfloat16)
+    data = SyntheticDetection(2, seed=4)
+    batch = [torch.from_numpy(a).to(cuda) for a in detection_collate(
+        [data[i] for i in range(2)], 60)]
+    opt = make_optimizer(model.net.parameters(), lambda t: 1e-3,
+                         grad_clip_norm=10.0)
+    step = make_train_step(model, opt, TrainConfig(max_boxes=60,
+                                                   grad_clip_norm=10.0))
+    state = create_train_state(model, opt)
+    state, _ = step(state, *batch)  # warm-up: lazy init may sync once
+    x = torch.from_numpy(_noise(5, 2)).to(cuda)
+    with torch.inference_mode():
+        serving.graphs[2].replay(x)
+    torch.cuda.synchronize()
+    with profile_trace(str(tmp_path / "t")):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, metrics = step(state, *batch)
+            with torch.inference_mode():
+                serving.graphs[2].replay(x)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        serving(_noise(6, 2))
+    assert np.isfinite(float(metrics["loss"]))
+    recs = timer.span_records()
+    phases = [r for r in recs if r.parent == "train.step"]
+    assert [r.name for r in phases] == [
+        "train.augment", "train.forward", "train.loss", "train.backward",
+        "train.optimizer"]
+    assert all(r.id == 1 for r in phases)
+    assert all(r.device_ms > 0 for r in phases[1:])
+    call = timer.span_records(last_ids=1)
+    assert [(r.name, r.id) for r in call] == [
+        ("serve.call", serving.calls), ("serve.h2d", serving.calls),
+        ("serve.replay", serving.calls), ("serve.d2h", serving.calls)]
+    summary = timer.span_summary(call)
+    assert summary["serve.h2d"]["device_ms"] > 0
+    assert summary["serve.replay"]["device_ms"] is None
+    assert summary["serve.d2h"]["device_ms"] is None
 
 
 # -- the stem twin, the slice pool backward, the benches, the demo core --------
@@ -997,7 +1059,7 @@ def test_slice_pool_backward_in_a_trace(cuda, tmp_path):
         pool(x).backward(g)  # warm-up
         x.grad = None  # a second gradient would be added in another op
         with profile_trace(str(tmp_path)):
-            with step_annotation("pool"):
+            with span("pool"):
                 pool(x).backward(g)
     cats = trace_stats(str(tmp_path))["categories_ms"]
     assert cats.get("max_pool2d backward", 0) > 0
