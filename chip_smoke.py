@@ -264,7 +264,24 @@ non-zero exit and no result line:
      on the card and on the CPU from the same weights
      (``separate_heads``), at least 99% of the rows above 0.2 matched
      within 6a's rtol 2e-4; K1's launches in 16a and 16d count in the
-     kernels line.
+     kernels line;
+ 17. the convolution epilogue (``csrc/conv_epilogue.cu``, the op
+     ``conv_bias_relu``: cuDNN's convolution without its bias, then the
+     bias add and the ReLU in one pass in place), at the fused convs of
+     each benchmark cell (RefineDet512 at batch 16, RefineDet320 at 64,
+     the int8 twin's three at 32; ``tools/epilogue_bench.py``): (a) the op
+     under bf16 autocast bitwise aten's conv with its bias and ``relu_``
+     on seeded channels-last tensors at each distinct shape; (b) beside
+     the card's name and power limit, per cell the epilogue's device ms
+     over every fused output (graph replay), its bytes bound (each output
+     read and written once at 3.35 TB/s) and share of it, aten's ``add_``
+     + ``relu_`` on the same tensors, the wrapper's host us a call, and
+     the share over the cell's outputs of 64 MiB or more alone.
+     Its launches on the main paths count in the kernels line, each
+     path's set to 0 just before it and checked just after against 25 a
+     forward or graph replay (3 in the int8 twin, none in the BN
+     variant): 3's serving, 6b's Trainer, 7a-c's eval, 8b's 896-BN
+     serving, 10b's artifact, 11c's int8 artifact and 11e's int8 eval.
 
 The line before the last is the card's name and power limit from
 nvidia-smi; the last is {"ok": true, "device": {...}}. TF32 is off for
@@ -356,6 +373,11 @@ STEM_SERVE_MATCHED = 0.98  # 16a: share of rows matched
 POOL_CHECK_BATCH = 8      # 16b: pool1's shape at this batch
 POOL_STEP_BATCH = 8       # 16b: one bf16 train step in each mode
 DEMO_THRESHOLD = 0.2      # 16d: separate_heads scores stay below 0.4
+EPILOGUE_LARGE_BYTES = 64 << 20  # 17b: the epilogue's share on these alone
+EPILOGUE_CONVS = 25       # conv_bias_relu launches a forward, 320 and 512
+EPILOGUE_CONVS_INT8 = 3   # the same in the int8 twin (default quant_skip)
+# the conv epilogue's launches on each main path that counts them (17)
+EPILOGUE_PATHS: dict = {}
 # 11a: kernels against plain, 320 set: every engine bucket up to 32 (13c)
 INT8_CHECK_BATCHES = (1, 2, 4, 8, 16, 32)
 INT8_CHECK_512_BATCH = 8      # 11a: the 512 set (SSDD eval) at this batch
@@ -409,6 +431,23 @@ def host_issue_ms(fn, reps: int) -> float:
     ms = (time.perf_counter() - t0) * 1e3 / reps
     torch.cuda.synchronize()
     return ms
+
+
+def count_epilogue(path: str, forwards: int,
+                   per_forward: int = EPILOGUE_CONVS) -> int:
+    """The conv epilogue's launches on the main path ``path`` since
+    ``conv_bias_relu.launches`` was set to 0 just before it, checked
+    against ``per_forward`` for each of its ``forwards`` forwards or graph
+    replays, and kept in ``EPILOGUE_PATHS`` for the kernels line."""
+    from refinedet_tpu_torch.ops import conv_epilogue
+    n = conv_epilogue.conv_bias_relu.launches
+    check(n == per_forward * forwards,
+          f"{path}: the conv epilogue launched {n} times for {forwards} "
+          f"forwards of {per_forward} fused convs")
+    log("epilogue", f"{path}: {n} conv epilogue launches, {per_forward} "
+        f"for each of {forwards} forwards")
+    EPILOGUE_PATHS[path] = n
+    return n
 
 
 def ptxas_summary(log: str) -> dict:
@@ -517,6 +556,7 @@ def train_phase(dev: torch.device, folder: str) -> dict:
     from refinedet_tpu_torch.config import TrainConfig
     from refinedet_tpu_torch.data.collate import detection_collate
     from refinedet_tpu_torch.models import build_refinedet
+    from refinedet_tpu_torch.ops import conv_epilogue
     from refinedet_tpu_torch.tools.train_check import (SyntheticDetection,
                                                        one_step,
                                                        separated_batch,
@@ -571,7 +611,9 @@ def train_phase(dev: torch.device, folder: str) -> dict:
     lines = []
     live = Trainer(build(bf16), data, cfg, save_folder=folder,
                    dataset_name="SYN", log_fn=lines.append)
+    conv_epilogue.conv_bias_relu.launches = 0
     state = live.train()
+    count_epilogue("6b Trainer", TRAIN_STEPS)
     for line in lines:
         log("train", f"6b: {line}")
     losses = [float(v) for line in lines
@@ -740,7 +782,7 @@ def eval_phase(dev: torch.device, folder: str) -> tuple:
     from refinedet_tpu_torch.eval.cli_coco import make_loader
     from refinedet_tpu_torch.eval.evaluator import eval_postprocess
     from refinedet_tpu_torch.models import build_refinedet
-    from refinedet_tpu_torch.ops import nms_cuda
+    from refinedet_tpu_torch.ops import conv_epilogue, nms_cuda
     from refinedet_tpu_torch.ops.nms import select_candidates
     from refinedet_tpu_torch.tools.eval_check import (SyntheticSSDD,
                                                       SyntheticVOC)
@@ -779,11 +821,13 @@ def eval_phase(dev: torch.device, folder: str) -> tuple:
                f"{len(data)} images")
         # -- 7a/7b. the main path: K1 once per batch ------------------------
         nms_cuda.nms_sweep.launches = 0
+        conv_epilogue.conv_bias_relu.launches = 0
         t0 = time.perf_counter()
         all_boxes = evaluator.run(state)
         e2e_ips = len(data) / (time.perf_counter() - t0)
         timing = dict(evaluator.timing)
         run_launches = nms_cuda.nms_sweep.launches
+        count_epilogue(tag.split(":")[0], n_batches)
         launches += run_launches
         log("eval", f"{tag} from {os.path.basename(ckpt)}: K1 launches "
             f"{run_launches} for {n_batches} batches")
@@ -819,10 +863,12 @@ def eval_phase(dev: torch.device, folder: str) -> tuple:
 
         evaluator_module.eval_postprocess = recording
         nms_cuda.nms_sweep.launches = 0
+        conv_epilogue.conv_bias_relu.launches = 0
         try:
             evaluator.run()
         finally:
             evaluator_module.eval_postprocess = eval_postprocess
+        count_epilogue(f"7c {name}", n_batches)
         check(nms_cuda.nms_sweep.launches == len(recorded) == n_batches,
               f"{name}: {nms_cuda.nms_sweep.launches} K1 launches for "
               f"{len(recorded)} recorded of {n_batches} batches")
@@ -906,7 +952,7 @@ def bn_phase(dev: torch.device, rng) -> tuple:
     from refinedet_tpu_torch.config import TrainConfig
     from refinedet_tpu_torch.data.collate import detection_collate
     from refinedet_tpu_torch.models import build_refinedet_bn
-    from refinedet_tpu_torch.ops import nms_cuda
+    from refinedet_tpu_torch.ops import conv_epilogue, nms_cuda
     from refinedet_tpu_torch.serve import make_serving_fn
     from refinedet_tpu_torch.serve.export import (fused_nms_settings,
                                                   fused_postprocess)
@@ -993,8 +1039,10 @@ def bn_phase(dev: torch.device, rng) -> tuple:
     imgs = noise_images(rng, BN_BATCH, BN_SIZE)
     serve(imgs)  # warm-up: the cuDNN plans of this shape
     nms_cuda.nms_sweep.launches = 0
+    conv_epilogue.conv_bias_relu.launches = 0
     served = [serve(imgs) for _ in range(BN_SERVE_CALLS)]
     launches = nms_cuda.nms_sweep.launches
+    count_epilogue("8b 896-BN serving", BN_SERVE_CALLS, 0)  # BN: no fusion
     check(launches == BN_SERVE_CALLS,
           f"8b: K1 launched {launches} times in {BN_SERVE_CALLS} batches")
     for dets in served:
@@ -1314,10 +1362,11 @@ def serve_requests(engine, server, requests, label: str) -> tuple:
     the others from 4 client threads through ``engine``, the kernels'
     counts set to 0 just before and K1's read just after (the int8
     kernels' stay in ``int8_conv.launches`` and ``int8_quantize.
-    launches``). Checks every answer (no
+    launches``, the conv epilogue's in ``conv_bias_relu.launches``).
+    Checks every answer (no
     error, fused dets of the expected shape, finite) and returns (answers
     by request, the engine's stats, K1's launches)."""
-    from refinedet_tpu_torch.ops import int8_conv, nms_cuda
+    from refinedet_tpu_torch.ops import conv_epilogue, int8_conv, nms_cuda
     from refinedet_tpu_torch.serve import client_detect
 
     n_engine = len(requests) - HTTP_REQUESTS
@@ -1336,6 +1385,7 @@ def serve_requests(engine, server, requests, label: str) -> tuple:
     nms_cuda.nms_sweep.launches = 0
     int8_conv.int8_conv.launches = 0
     int8_conv.int8_quantize.launches = 0
+    conv_epilogue.conv_bias_relu.launches = 0
     server.start()
     try:
         threads = [threading.Thread(target=client, args=(t,))
@@ -1500,9 +1550,12 @@ def artifact_phase(dev: torch.device, smi: str, rng) -> tuple:
         before = nms_cuda.nms_sweep.launches
         got = s320(imgs)
         check(nms_cuda.nms_sweep.launches == before + 1
-              and s320.graphs[b].launches == 1,
+              and s320.graphs[b].launches == 1
+              and s320.graphs[b].epilogue_launches == EPILOGUE_CONVS,
               f"10b: bucket {b}'s replay counted "
-              f"{nms_cuda.nms_sweep.launches - before} K1 launches")
+              f"{nms_cuda.nms_sweep.launches - before} K1 launches, its "
+              f"graph holds {s320.graphs[b].epilogue_launches} conv "
+              "epilogues")
         with torch.inference_mode():
             want = s320.module(torch.from_numpy(imgs).to(dev)).cpu().numpy()
         check(np.array_equal(got, want),
@@ -1517,6 +1570,7 @@ def artifact_phase(dev: torch.device, smi: str, rng) -> tuple:
     check(launches == stats["batches"] > 0,
           f"10b: K1 launched {launches} times for {stats['batches']} "
           "device batches through the graphs")
+    count_epilogue("10b artifact", stats["batches"])
     kept = int(sum((d[..., 4] > 0).sum() for d in results.values()))
     log("artifact", f"10b: {len(requests)} requests ({HTTP_REQUESTS} over "
         f"HTTP) through the artifact in {stats['batches']} device batches, "
@@ -1668,7 +1722,7 @@ def int8_phase(dev: torch.device, smi: str, rng) -> tuple:
     from refinedet_tpu_torch.eval.evaluator import eval_postprocess
     from refinedet_tpu_torch.models import build_refinedet
     from refinedet_tpu_torch.models.layers import QuantConv2d
-    from refinedet_tpu_torch.ops import int8_conv, nms_cuda
+    from refinedet_tpu_torch.ops import conv_epilogue, int8_conv, nms_cuda
     from refinedet_tpu_torch.quant import (DEFAULT_QUANT_SKIP,
                                            accumulate_hessians,
                                            calib_batches_from_dataset,
@@ -1875,10 +1929,12 @@ def int8_phase(dev: torch.device, smi: str, rng) -> tuple:
     serving.warm_up(engine.buckets)
     for b in engine.buckets:
         g = serving.graphs[b]
-        check((g.int8_launches, g.quant_launches, g.launches)
-              == (INT8_CONVS, INT8_CONVS, 1),
+        check((g.int8_launches, g.quant_launches, g.launches,
+               g.epilogue_launches)
+              == (INT8_CONVS, INT8_CONVS, 1, EPILOGUE_CONVS_INT8),
               f"11c: bucket {b}'s graph holds {g.int8_launches} int8 conv, "
-              f"{g.quant_launches} quantize and {g.launches} K1 launches")
+              f"{g.quant_launches} quantize, {g.launches} K1 and "
+              f"{g.epilogue_launches} conv epilogue launches")
     server = Server(engine, serving.meta)
     requests = noise_images(rng, ENGINE_REQUESTS + HTTP_REQUESTS)
     copies = quant.copies
@@ -1889,6 +1945,7 @@ def int8_phase(dev: torch.device, smi: str, rng) -> tuple:
           == INT8_CONVS * stats["batches"],
           f"11c: {int8_launches} int8 conv, {quant_launches} quantize and "
           f"{k1_launches} K1 launches for {stats['batches']} device batches")
+    count_epilogue("11c int8 artifact", stats["batches"], EPILOGUE_CONVS_INT8)
     log("int8", f"11c: {len(requests)} requests ({HTTP_REQUESTS} over HTTP) "
         f"through the int8 artifact's graphs (buckets "
         f"{list(engine.buckets)}, each holding {INT8_CONVS} int8 conv, "
@@ -2052,10 +2109,12 @@ def int8_phase(dev: torch.device, smi: str, rng) -> tuple:
     nms_cuda.nms_sweep.launches = 0
     op.launches = 0
     quant.launches = 0
+    conv_epilogue.conv_bias_relu.launches = 0
     try:
         all_boxes = evaluator.run(state512)
     finally:
         evaluator_module.eval_postprocess = eval_postprocess
+    count_epilogue("11e int8 eval", n_batches, EPILOGUE_CONVS_INT8)
     eval_k1, eval_int8 = nms_cuda.nms_sweep.launches, op.launches
     eval_quant = quant.launches
     check(eval_k1 == len(recorded) == n_batches
@@ -3065,6 +3124,70 @@ def s2d_phase(dev: torch.device, smi: str, rng) -> tuple:
     return out, launches
 
 
+def epilogue_phase(dev: torch.device, smi: str) -> tuple:
+    """Phase 17: the convolution epilogue at each cell's fused convs."""
+    from refinedet_tpu_torch.ops import conv_epilogue
+    from refinedet_tpu_torch.quant.ptq import DEFAULT_QUANT_SKIP
+    from refinedet_tpu_torch.tools import epilogue_bench
+
+    cells = {"ssdd512-detect-b16": (512, 2, 16, None),
+             "voc320-train-b64": (320, 21, 64, None),
+             "voc320-int8-detect-b32": (320, 21, 32, DEFAULT_QUANT_SKIP)}
+    g = torch.Generator(dev).manual_seed(17)
+    out, compared, worst = {}, 0, 0.0
+    for cell, (size, classes, batch, skip) in cells.items():
+        shapes = epilogue_bench.fused_shapes(size, classes, batch,
+                                             quant_skip=skip)
+        for sh in epilogue_bench.distinct(shapes):
+            geom = (sh["stride"], sh["padding"], sh["dilation"])
+            x, w, b = epilogue_bench.conv_inputs(sh, g, dev)
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                got = conv_epilogue.conv_bias_relu(x, w, b, *geom)
+                want = torch.nn.functional.conv2d(x, w, b, *geom).relu_()
+            check(bitwise_equal(got, want),
+                  f"17a {cell}: conv_bias_relu at {sh} is not aten's")
+            worst = max(worst, float((got.float() - want.float()).abs().max()))
+            compared += 1
+            del x, w, got, want
+        t = epilogue_bench.time_ms(shapes)
+        large = [sh for sh in shapes
+                 if 2 * torch.Size(sh["y"]).numel() >= EPILOGUE_LARGE_BYTES]
+        t_large = epilogue_bench.time_ms(large)
+        t["large"] = dict(t_large, count=len(large),
+                          share=100.0 * t_large["bound_ms"] / t_large["ms"])
+        y, bias = epilogue_bench.outputs(shapes[-1:], torch.bfloat16, dev)[0]
+        host_us = 1e3 * host_issue_ms(
+            lambda: conv_epilogue.bias_relu_(y, bias), 200)
+        t.update(cell=cell, share=100.0 * t["bound_ms"] / t["ms"],
+                 host_us=host_us)
+        out[cell] = t
+        log("epilogue", f"{smi} | {cell}: {t['launches']} fused convs, "
+            f"{t['bytes'] / 1e9:.3f} GB; epilogue {t['ms']:.4f} ms, "
+            f"{t['share']:.1f}% of its {t['bound_ms']:.4f} ms bound; aten "
+            f"add_ + relu_ {t['library_ms']:.4f} ms; wrapper "
+            f"{host_us:.1f} us a call (host); its {len(large)} outputs of "
+            f"64 MiB or more: {t_large['ms']:.4f} ms, "
+            f"{t['large']['share']:.1f}% of {t_large['bound_ms']:.4f} ms")
+        torch.cuda.empty_cache()
+    log("epilogue", f"17a: {compared} distinct shapes bitwise aten's (max "
+        f"abs err {worst:g})")
+    launches = sum(EPILOGUE_PATHS.values())
+    log("epilogue", f"launches on the main paths: {launches} "
+        f"({json.dumps(EPILOGUE_PATHS)})")
+    entry = {"name": "conv_bias_relu", "route": "cuda",
+             "source": "refinedet_tpu_torch/csrc/conv_epilogue.cu",
+             "replaces": "aten's bias add inside _convolution and the ReLU "
+                         "after it (XLA fuses both into the conv)",
+             "launches": launches,
+             "max_abs_err": worst,
+             "ms": {c: t["ms"] for c, t in out.items()},
+             "plain_ms": None,
+             "bound_ms": {c: t["bound_ms"] for c, t in out.items()},
+             "bound_by": "bytes",
+             "library_ms": {c: t["library_ms"] for c, t in out.items()}}
+    return out, entry
+
+
 def time_sweep(cand, valid, label, thresh, plus_one=False):
     """K1's device ms per launch and the plain version's ms on these
     candidates at IoU ``thresh``, and K1's bound."""
@@ -3115,7 +3238,7 @@ def main() -> int:
         return 1
 
     from refinedet_tpu_torch.models import build_refinedet
-    from refinedet_tpu_torch.ops import int8_conv, nms_cuda
+    from refinedet_tpu_torch.ops import conv_epilogue, int8_conv, nms_cuda
     from refinedet_tpu_torch.ops.nms import nms_sweep_reference
     from refinedet_tpu_torch.serve import (BatchingEngine, Server,
                                            make_serving_fn)
@@ -3147,23 +3270,26 @@ def main() -> int:
     builds = {}
     threads = [threading.Thread(target=lambda n=n, f=f: builds.__setitem__(
         n, f())) for n, f in (("K1", nms_cuda.load_kernel),
-                              ("int8_conv", int8_conv.load_kernel))]
+                              ("int8_conv", int8_conv.load_kernel),
+                              ("conv_epilogue", conv_epilogue.load_kernel))]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
-    check(set(builds) == {"K1", "int8_conv"}, f"builds: {sorted(builds)}")
+    check(set(builds) == {"K1", "int8_conv", "conv_epilogue"},
+          f"builds: {sorted(builds)}")
     kernel = builds["K1"]
     log("device", f"kernels built in {time.perf_counter() - t0:.2f} s")
     log("device", f"K1 built in {kernel.build_seconds:.2f} s -> "
         f"{kernel.path.name} (max K {kernel.max_k})")
     for line in kernel.build_log.splitlines():
         log("device", f"  {line}")
-    lib8 = builds["int8_conv"]
-    log("device", f"int8_conv built in {lib8.build_seconds:.2f} s -> "
-        f"{lib8.path.name}")
-    for line in lib8.build_log.splitlines():
-        log("device", f"  {line}")
+    for name in ("int8_conv", "conv_epilogue"):
+        lib = builds[name]
+        log("device", f"{name} built in {lib.build_seconds:.2f} s -> "
+            f"{lib.path.name}")
+        for line in lib.build_log.splitlines():
+            log("device", f"  {line}")
 
     # -- 2. K1 against its plain version ------------------------------------
     model = build_refinedet("test", SIZE, NUM_CLASSES, device=dev, seed=0)
@@ -3249,6 +3375,7 @@ def main() -> int:
     kept = int(sum((d[..., 4] > 0).sum() for d in results.values()))
     check(launches >= stats["batches"] > 0,
           f"K1 launched {launches} times for {stats['batches']} batches")
+    count_epilogue("3 serve", launches)  # a forward and a K1 launch a call
     log("serve", f"{n_req} requests ({HTTP_REQUESTS} over HTTP) in "
         f"{stats['batches']} device batches, 0 errors, {kept} detections; "
         f"K1 launches {launches}")
@@ -3407,8 +3534,14 @@ def main() -> int:
     s2d, s2d_launches = s2d_phase(dev, smi, rng)
     launches += s2d_launches
     log("time", f"phase 16 took {time.perf_counter() - t16:.1f} s")
-    log("time", f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"s2d": s2d}), flush=True)
+
+    # -- 17. the convolution epilogue -----------------------------------------
+    t17 = time.perf_counter()
+    epilogue, epilogue_entry = epilogue_phase(dev, smi)
+    log("time", f"phase 17 took {time.perf_counter() - t17:.1f} s")
+    log("time", f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"epilogue": epilogue}), flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "nms_sweep",
@@ -3422,7 +3555,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }, *int8_entries]}), flush=True)
+    }, *int8_entries, epilogue_entry]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind,

@@ -31,6 +31,18 @@ Variants, as in the JAX module:
     weights are a standard network's, folded (``reset_parameters``
     folds the standard net of the same draws).
 
+On the card, the plain network's unsharded forward runs each conv that
+feeds a ReLU, the trunk's 15, both extras and each level's first TCB conv
+and its TCB2 conv (25 a forward; the int8 twin's float convs among them),
+as one ``ops.conv_epilogue.conv_bias_relu``: cuDNN's convolution without
+its bias, then the bias add and the ReLU in one pass, bitwise the
+separate ops. Which convs go so is read from what the forward sees
+(``_fuses``): a plain ``nn.Conv2d`` without hooks, its ReLU without
+hooks, a CUDA input in a dtype the epilogue takes. Meta and CPU inputs,
+hooked modules (calibration, FLOP and shape counters), ``QuantConv2d``,
+the BN variant, the spatial path and the stem twin's stem run as before;
+modules and the state_dict are the same.
+
 Submodules carry the reference network's state_dict names (``vgg.N``,
 ``extras.N``, ``arm_loc.i``, ``tcb0.{3i,3i+2}``, ``tcb1.i``,
 ``tcb2.{3i+1}``, ``conv4_3_L2Norm``), with the BN variant's indices of
@@ -48,11 +60,13 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.nn.modules import module as _module
 
 from refinedet_tpu_torch.models.layers import BatchNorm2d, L2Norm, \
     MaxPool2x2, QuantConv2d
 from refinedet_tpu_torch.models.stem_s2d import STEM_PHASES, \
     STEM_VGG_LAYERS, fold_stem_state_dict
+from refinedet_tpu_torch.ops import conv_epilogue
 
 # VGG-16 convs (name, width); "M" is a 2x2 pool, "C" the ceil-mode pool3.
 VGG_CFG = (("conv1_1", 64), ("conv1_2", 64), "M",
@@ -278,24 +292,31 @@ class RefineDet(nn.Module):
         else:
             spatial.check(images)
             run, full = spatial.call, spatial.full
+        # The plain network's unsharded forward runs each conv that feeds
+        # a ReLU as one conv_bias_relu where it can (``_fuses``).
+        fuse = spatial is None and not self.use_bn
         x = images.permute(0, 3, 1, 2)
         sources = []
-        start = 0
+        k = 0
         if self.stem_s2d:
             x = self.stem(x)
-            start = STEM_VGG_LAYERS
-        for k, layer in enumerate(self.vgg):
-            if k < start:
-                continue
-            x = run(f"vgg.{k}", layer, x)
-            if k in self._taps:
-                name = self._taps[k]
-                sources.append(run(name, getattr(self, name), x))
+            k = STEM_VGG_LAYERS
+        for tap in sorted(self._taps):  # each an index of a ReLU
+            x = _chain("vgg", self.vgg, k, tap + 1, x, run, fuse)
+            sources.append(run(self._taps[tap],
+                               getattr(self, self._taps[tap]), x))
+            k = tap + 1
+        x = _chain("vgg", self.vgg, k, len(self.vgg), x, run, fuse)
         sources.append(x)  # fc7
-        for k, layer in enumerate(self.extras):
-            x = run(f"extras.{k}", layer, x)
-            if not self.use_bn:  # the BN variant has its ReLU modules
-                x = torch.relu(x)
+        if self.use_bn:  # the BN variant has its ReLU modules
+            x = _chain("extras", self.extras, 0, len(self.extras), x, run,
+                       fuse)
+        else:
+            for k, layer in enumerate(self.extras):
+                if fuse and _fuses(layer, x):
+                    x = _conv_bias_relu(layer, x)
+                else:
+                    x = torch.relu(run(f"extras.{k}", layer, x))
         sources.append(x)
 
         arm_loc = self._flatten(self.arm_loc, "arm_loc", sources, 4, run,
@@ -308,13 +329,11 @@ class RefineDet(nn.Module):
         tcb_feats = [None] * n
         p = None
         for si in reversed(range(n)):
-            s = sources[si]
-            for j in range(3 * si, 3 * si + 3):
-                s = run(f"tcb0.{j}", self.tcb0[j], s)
+            s = _chain("tcb0", self.tcb0, 3 * si, 3 * si + 3, sources[si],
+                       run, fuse)
             if si != n - 1:
                 s = s + run(f"tcb1.{si}", self.tcb1[si], p)
-            for j in range(3 * si, 3 * si + 3):
-                s = run(f"tcb2.{j}", self.tcb2[j], s)
+            s = _chain("tcb2", self.tcb2, 3 * si, 3 * si + 3, s, run, fuse)
             p = s
             tcb_feats[si] = s
 
@@ -353,6 +372,50 @@ class RefineDet(nn.Module):
 
 def _run(name: str, module: nn.Module, x: torch.Tensor) -> torch.Tensor:
     return module(x)
+
+
+def _hooked(module: nn.Module) -> bool:
+    """Whether calling ``module`` would run a hook, its own or a global
+    one (the test ``nn.Module.__call__`` makes before it skips them)."""
+    return bool(module._forward_hooks or module._forward_pre_hooks
+                or module._backward_hooks or module._backward_pre_hooks
+                or _module._global_forward_hooks
+                or _module._global_forward_pre_hooks
+                or _module._global_backward_hooks
+                or _module._global_backward_pre_hooks)
+
+
+def _fuses(conv: nn.Module, x: torch.Tensor) -> bool:
+    """Whether ``conv``, which feeds a ReLU, runs with it as one
+    ``conv_bias_relu`` on the input ``x``: a plain ``nn.Conv2d`` (not a
+    subclass, not ``QuantConv2d``) with no hooks, on a CUDA input (not
+    meta, not the CPU), in a form the epilogue takes."""
+    return type(conv) is nn.Conv2d and x.device.type == "cuda" and \
+        not _hooked(conv) and conv_epilogue.takes(conv, x)
+
+
+def _conv_bias_relu(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    return conv_epilogue.conv_bias_relu(x, conv.weight, conv.bias,
+                                        conv.stride, conv.padding,
+                                        conv.dilation)
+
+
+def _chain(name: str, mods: nn.ModuleList, lo: int, hi: int,
+           x: torch.Tensor, run, fuse: bool) -> torch.Tensor:
+    """``mods[lo:hi]`` in turn through ``run``; with ``fuse``, a conv that
+    ``_fuses`` and the ``nn.ReLU`` after it (without hooks) run as one
+    ``conv_bias_relu``."""
+    k = lo
+    while k < hi:
+        m = mods[k]
+        if fuse and k + 1 < hi and type(mods[k + 1]) is nn.ReLU and \
+                not _hooked(mods[k + 1]) and _fuses(m, x):
+            x = _conv_bias_relu(m, x)
+            k += 2
+        else:
+            x = run(f"{name}.{k}", m, x)
+            k += 1
+    return x
 
 
 def _whole(name: str, y: torch.Tensor) -> torch.Tensor:

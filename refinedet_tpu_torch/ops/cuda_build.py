@@ -7,6 +7,8 @@ reused. The wrappers load the library with ``ctypes``.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -58,3 +60,13 @@ def nvcc_build(source: Path, flags: Sequence[str], stem: str
                            f"building {source}:\n{log}")
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
     return out, seconds, log
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelLibrary:
+    """A loaded library of kernels and how it was built."""
+
+    lib: ctypes.CDLL
+    path: Path
+    build_seconds: float  # 0.0 when this source's library was already built
+    build_log: str        # nvcc's output, with ptxas -v ("" when reused)

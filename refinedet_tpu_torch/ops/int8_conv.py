@@ -49,14 +49,13 @@ import ctypes
 import dataclasses
 import functools
 import threading
-from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from refinedet_tpu_torch.ops.cuda_build import BUILD_DIR, HOPPER_FLAGS, \
-    nvcc_build
+    KernelLibrary, nvcc_build
 
 SOURCE = BUILD_DIR.parent / "csrc" / "int8_conv.cu"
 OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
@@ -64,16 +63,6 @@ C_MULTIPLE = 32  # a K step of the kernel lies inside one tap
 O_MULTIPLE = 64  # the smallest N tile
 STRIDES = (1, 2)  # stride 2 reads four parity planes of the input
 QUANT_DTYPES = (torch.bfloat16, torch.float32)  # the quantize kernel's
-
-
-@dataclasses.dataclass(frozen=True)
-class KernelLibrary:
-    """The loaded library of both int8 kernels and how it was built."""
-
-    lib: ctypes.CDLL
-    path: Path
-    build_seconds: float  # 0.0 when this source's library was already built
-    build_log: str        # nvcc's output, with ptxas -v ("" when reused)
 
 
 _lock = threading.Lock()

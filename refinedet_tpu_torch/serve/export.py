@@ -15,9 +15,10 @@ file and ``load_serving`` reads it back as a ``ServingModel`` without any
 model class: the serving host needs torch, numpy and
 ``refinedet_tpu_torch.ops`` (which registers K1 as the op
 ``refinedet_tpu_torch::nms_sweep``, the int8 convolution as
-``refinedet_tpu_torch::int8_conv`` and the activation quantize before it
-as ``refinedet_tpu_torch::int8_quantize``, one node of the exported graph
-each).
+``refinedet_tpu_torch::int8_conv``, the activation quantize before it
+as ``refinedet_tpu_torch::int8_quantize`` and a convolution with its bias
+and ReLU as ``refinedet_tpu_torch::conv_bias_relu``, one node of the
+exported graph each).
 One artifact serves any batch size when exported with a symbolic batch.
 The int8 twin (``build_refinedet(..., quant=True)`` filled by
 ``quant.quantize_model``) exports the same way; its metadata says
@@ -66,7 +67,7 @@ from torch import nn
 from refinedet_tpu_torch.config import VOC_MEANS, DetectConfig
 from refinedet_tpu_torch.detect.detection import detect_refinedet
 from refinedet_tpu_torch.device import resolve_device
-from refinedet_tpu_torch.ops import int8_conv, nms_cuda
+from refinedet_tpu_torch.ops import conv_epilogue, int8_conv, nms_cuda
 from refinedet_tpu_torch.ops.dispatch import class_parallel_nms
 from refinedet_tpu_torch.utils.timer import span
 
@@ -396,6 +397,14 @@ def save_serving(model, state: Optional[Mapping], path: str,
     return write_serving(path, programs, meta)
 
 
+# each hand-written kernel's wrapper by the BucketGraph attribute that
+# holds its launches in one graph
+_COUNTED = {"launches": nms_cuda.nms_sweep,
+            "int8_launches": int8_conv.int8_conv,
+            "quant_launches": int8_conv.int8_quantize,
+            "epilogue_launches": conv_epilogue.conv_bias_relu}
+
+
 class BucketGraph:
     """The artifact at one batch size as one CUDA graph: a static input
     buffer, the graph, its static outputs, and the kernel launches it
@@ -404,9 +413,11 @@ class BucketGraph:
     Capture runs the module twice on a side stream first (the kernels'
     builds, cuDNN's plans, the allocator's warm-up); a capture that fails
     raises. The kernels' wrappers count a launch recorded into the graph
-    in ``nms_sweep.captured`` (K1), ``int8_conv.captured`` and
-    ``int8_quantize.captured``; every replay adds the graph's launches to
-    their ``launches``.
+    in ``nms_sweep.captured`` (K1), ``int8_conv.captured``,
+    ``int8_quantize.captured`` and ``conv_bias_relu.captured``; the graph
+    holds their launches in ``launches``, ``int8_launches``,
+    ``quant_launches`` and ``epilogue_launches`` (``_COUNTED``), and every
+    replay adds them to the wrappers' ``launches``.
     """
 
     def __init__(self, module: nn.Module, static_in: torch.Tensor,
@@ -419,15 +430,11 @@ class BucketGraph:
                 module(static_in)
         torch.cuda.current_stream(static_in.device).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        before = nms_cuda.nms_sweep.captured
-        before_int8 = int8_conv.int8_conv.captured
-        before_quant = int8_conv.int8_quantize.captured
+        before = {attr: op.captured for attr, op in _COUNTED.items()}
         with torch.cuda.graph(self.graph, pool=pool):
             self.out = module(static_in)
-        self.launches = nms_cuda.nms_sweep.captured - before
-        self.int8_launches = int8_conv.int8_conv.captured - before_int8
-        self.quant_launches = int8_conv.int8_quantize.captured - \
-            before_quant
+        for attr, op in _COUNTED.items():
+            setattr(self, attr, op.captured - before[attr])
 
     def replay(self, images: torch.Tensor):
         """Copy ``images`` (host) into the static input, replay, and
@@ -436,9 +443,8 @@ class BucketGraph:
             self.static_in.copy_(images)
         with span("serve.replay"):
             self.graph.replay()
-        nms_cuda.nms_sweep.launches += self.launches
-        int8_conv.int8_conv.launches += self.int8_launches
-        int8_conv.int8_quantize.launches += self.quant_launches
+        for attr, op in _COUNTED.items():
+            op.launches += getattr(self, attr)
         return self.out
 
 

@@ -20,7 +20,8 @@ fixed boxes and labels on seeded images. Variants of the same step:
 and with ``--remat`` two activation-recomputation variants of ``grad``:
 ``grad-rmt`` (``torch.utils.checkpoint``, non-reentrant, over the whole
 loss) and ``grad-dots`` (a selective-checkpoint policy that saves only
-the convolution outputs and recomputes the rest, the counterpart of
+the convolution outputs, on the card those of ``conv_bias_relu`` with
+their ReLU, and recomputes the rest, the counterpart of
 ``jax.checkpoint_policies.checkpoint_dots``). It prints each variant's
 ms per iteration and images/s, its peak memory on the card, and the
 attribution block: forward, losses, backward, the losses' share of it,
@@ -61,7 +62,8 @@ NUM_CLASSES = 2
 MAX_BOXES = 8
 CONV_OPS = {torch.ops.aten.convolution.default,
             torch.ops.aten.cudnn_convolution.default,
-            torch.ops.aten.mkldnn_convolution.default}
+            torch.ops.aten.mkldnn_convolution.default,
+            torch.ops.refinedet_tpu_torch.conv_bias_relu.default}
 
 
 def train_batch(batch: int, size: int, device: DeviceLike):

@@ -58,7 +58,8 @@ from refinedet_tpu_torch.eval import evaluator as evaluator_module
 from refinedet_tpu_torch.eval.evaluator import eval_postprocess
 from refinedet_tpu_torch.models import (build_refinedet, build_refinedet_bn,
                                         layers)
-from refinedet_tpu_torch.ops import int8_conv, nms_cuda, nms_native
+from refinedet_tpu_torch.ops import conv_epilogue, int8_conv, nms_cuda, \
+    nms_native
 from refinedet_tpu_torch.ops.nms import nms_sweep_reference, soft_nms
 from refinedet_tpu_torch.parallel import distributed
 from refinedet_tpu_torch.losses import refinedet_multibox_loss
@@ -69,8 +70,8 @@ from refinedet_tpu_torch.serve.export import (ServingModel,
                                               load_serving, make_serving_fn,
                                               model_on, save_serving)
 from refinedet_tpu_torch.tools import (bench_pool_backward, bench_serve,
-                                       bench_stem_s2d, demo, fixture_train,
-                                       int8_bench)
+                                       bench_stem_s2d, demo, epilogue_bench,
+                                       fixture_train, int8_bench)
 from refinedet_tpu_torch.tools.fixtures import coco_fixture
 from refinedet_tpu_torch.tools.eval_check import (SyntheticSSDD,
                                                   SyntheticVOC)
@@ -1110,3 +1111,218 @@ def test_demo_core_on_the_card_matches_the_cpu(cuda):
     for (c, s, b), (wc, ws, wb) in zip(got, want):
         assert c == wc and abs(s - ws) <= 1e-4
         assert max(abs(p - q) for p, q in zip(b, wb)) <= 1
+
+
+# -- the convolution epilogue ------------------------------------------------
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view({torch.float32: torch.int32,
+                   torch.bfloat16: torch.int16}[t.dtype])
+
+
+def _assert_bitwise(got: torch.Tensor, want: torch.Tensor) -> None:
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.stride() == want.stride()
+    bad = int((_bits(got) != _bits(want)).sum())
+    assert bad == 0, f"{bad} of {got.numel()} elements differ"
+
+
+@pytest.mark.parametrize("batch", [1, 16, 32, 64])
+@pytest.mark.parametrize("size,num_classes", [(320, 21), (512, 2)])
+def test_conv_epilogue_equals_aten_at_every_fused_shape(cuda, size,
+                                                         num_classes, batch):
+    """Each fused conv of the network, bf16 under autocast on seeded
+    channels-last tensors: the op bitwise aten's conv with its bias, then
+    ``relu_``, and one epilogue launch a call."""
+    shapes = epilogue_bench.fused_shapes(size, num_classes, batch)
+    assert len(shapes) == 25
+    g = torch.Generator(cuda).manual_seed(size + batch)
+    for s in epilogue_bench.distinct(shapes):
+        geom = (s["stride"], s["padding"], s["dilation"])
+        x, w, b = epilogue_bench.conv_inputs(s, g, cuda)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            before = conv_epilogue.conv_bias_relu.launches
+            got = conv_epilogue.conv_bias_relu(x, w, b, *geom)
+            assert conv_epilogue.conv_bias_relu.launches == before + 1
+            want = torch.nn.functional.conv2d(x, w, b, *geom).relu_()
+        assert got.shape == s["y"]
+        _assert_bitwise(got, want)
+
+
+@pytest.mark.parametrize("layout", ["channels_last", "nchw"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 64, 40, 40), (3, 24, 3, 5),
+                                   (1, 1024, 1, 1)])
+def test_conv_epilogue_edge_values(cuda, dtype, layout, shape):
+    """The epilogue alone, in place, bitwise ``add_`` then ``relu_`` on
+    outputs and biases holding NaN, +-0, +-inf, the largest values and
+    subnormals; NCHW planes whose size is no multiple of a vector."""
+    g = torch.Generator(cuda).manual_seed(7)
+    fmt = torch.channels_last if layout == "channels_last" else \
+        torch.contiguous_format
+    info = torch.finfo(dtype)
+    special = torch.tensor([float("nan"), 0.0, -0.0, float("inf"),
+                            -float("inf"), info.max, -info.max, info.tiny,
+                            -info.tiny, info.tiny / 4, -info.tiny / 4],
+                           device=cuda)
+    y = torch.randn(shape, generator=g, device=cuda) * 3
+    flat = y.view(-1)
+    pick = torch.randint(0, flat.numel(), (flat.numel() // 4,),
+                         generator=g, device=cuda)
+    flat[pick] = special[torch.randint(0, len(special), pick.shape,
+                                       generator=g, device=cuda)]
+    y = y.to(dtype, memory_format=fmt)
+    b = torch.randn(shape[1], generator=g, device=cuda)
+    b[:len(special)] = special[:min(len(special), shape[1])]
+    b = b.to(dtype)
+    want = y.clone(memory_format=torch.preserve_format)
+    want.add_(b.view(1, -1, 1, 1)).relu_()
+    got = y.clone(memory_format=torch.preserve_format)
+    assert conv_epilogue.bias_relu_(got, b) is got
+    _assert_bitwise(got, want)
+
+
+def test_conv_epilogue_refusals(cuda):
+    y = torch.zeros((2, 64, 8, 8), device=cuda)
+    b = torch.zeros(64, device=cuda)
+    for bad_y, bad_b in ((torch.zeros((2, 12, 8, 8), device=cuda),
+                          torch.zeros(12, device=cuda)),
+                         (y.double(), b.double()), (y, b.bfloat16()),
+                         (y.transpose(2, 3)[:, :, :, :4], b),
+                         (y, b[:32])):
+        with pytest.raises(ValueError):
+            conv_epilogue.bias_relu_(bad_y, bad_b)
+
+
+def _hook_every_conv(net):
+    """A no-op forward hook on every conv: the net runs unfused."""
+    return [m.register_forward_hook(lambda *a: None) for m in net.modules()
+            if isinstance(m, torch.nn.Conv2d)]
+
+
+def test_train_step_grads_equal_unfused(cuda):
+    """One bf16 forward and backward of RefineDet320 with the train
+    step's losses at batch 8 (cuDNN deterministic): the loss and every
+    gradient bitwise those of the same net with every conv hooked, which
+    runs today's conv, bias add and ReLU."""
+    from refinedet_tpu_torch.tools.profile_train_step import train_batch
+    from refinedet_tpu_torch.train.train_step import train_losses
+    model = build_refinedet("train", 320, 21, dtype=torch.bfloat16,
+                            device=cuda, seed=0)
+    images, boxes, labels, valid = train_batch(8, 320, cuda)
+    cfg = TrainConfig(batch_size=8, max_boxes=boxes.shape[1])
+
+    def grads():
+        model.net.zero_grad(set_to_none=True)
+        heads = model.raw_forward(images, train=True)
+        loss, _ = train_losses(model, heads, boxes, labels, valid, cfg)
+        loss.backward()
+        return loss.detach(), {n: p.grad.clone()
+                               for n, p in model.net.named_parameters()}
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        before = conv_epilogue.conv_bias_relu.launches
+        loss, got = grads()
+        assert conv_epilogue.conv_bias_relu.launches == before + 25
+        handles = _hook_every_conv(model.net)
+        try:
+            want_loss, want = grads()
+        finally:
+            for h in handles:
+                h.remove()
+        assert conv_epilogue.conv_bias_relu.launches == before + 25
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    _assert_bitwise(loss, want_loss)
+    for n in want:
+        _assert_bitwise(got[n], want[n])
+
+
+def test_eager_inference_skips_the_dispatcher(cuda, monkeypatch):
+    """An eager bf16 forward of RefineDet512 in inference mode runs its 25
+    fused convs without the op's dispatcher, bitwise what the op gives;
+    with gradients recorded, or under the profiler, each goes through the
+    op (cuDNN deterministic)."""
+    calls = []
+    op = conv_epilogue.conv_bias_relu_op
+
+    def counting(*args):
+        calls.append(1)
+        return op(*args)
+
+    monkeypatch.setattr(conv_epilogue, "conv_bias_relu_op", counting)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    model = build_refinedet("test", 512, 2, dtype=torch.bfloat16,
+                            device=cuda, seed=0)
+    x = torch.randn(2, 512, 512, 3, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(3)) * 50
+    before = conv_epilogue.conv_bias_relu.launches
+    with torch.inference_mode():
+        direct = model.raw_forward(x)
+    assert not calls
+    assert conv_epilogue.conv_bias_relu.launches == before + 25
+    through_op = model.raw_forward(x)
+    assert len(calls) == 25
+    for a, b in zip(direct, through_op):
+        _assert_bitwise(a, b.detach())
+    with torch.inference_mode(), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        model.raw_forward(x)
+    assert len(calls) == 50
+    assert any("conv_bias_relu" in e.name for e in prof.events())
+
+
+@pytest.fixture(scope="module")
+def ssdd_artifact(tmp_path_factory):
+    """RefineDet512 (2 classes) in bf16 with the uint8 wire and the SSDD
+    mean, exported on the card with fused NMS, written and loaded."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    model = build_refinedet("test", 512, 2, dtype=torch.bfloat16,
+                            device="cuda", seed=0)
+    path = tmp_path_factory.mktemp("ssdd") / "refinedet512.rdtpu"
+    save_serving(model, None, str(path), fused_nms={}, uint8_input=True,
+                 input_mean=[98.13131] * 3)
+    return model, load_serving(str(path))
+
+
+def test_artifact_graph_counts_epilogue_and_equals_eager(ssdd_artifact,
+                                                         int8_artifact):
+    """A bucket's graph of the RefineDet512 artifact holds 25 epilogue
+    launches, the int8 twin's 3, each replay adds them to the count, and
+    the replay's detections equal the eager program's exactly; the eager
+    bf16 program equals the live net run with every conv hooked
+    (unfused)."""
+    model, loaded = ssdd_artifact
+    rng = np.random.RandomState(5)
+    imgs = rng.randint(0, 256, (4, 512, 512, 3)).astype(np.uint8)
+    serving = ServingModel(loaded.meta, loaded.program)
+    serving.warm_up((4,))
+    assert serving.graphs[4].epilogue_launches == 25
+    before = conv_epilogue.conv_bias_relu.launches
+    got = serving(imgs)
+    assert conv_epilogue.conv_bias_relu.launches == before + 25
+    x = torch.from_numpy(imgs).cuda()
+    with torch.inference_mode():
+        want = serving.module(x).cpu().numpy()
+    np.testing.assert_array_equal(got, want)
+    live = make_serving_fn(model, None, fused_nms={}, uint8_input=True,
+                           input_mean=[98.13131] * 3)
+    handles = _hook_every_conv(model.net)
+    try:
+        unfused = live(imgs)
+    finally:
+        for h in handles:
+            h.remove()
+    np.testing.assert_array_equal(want, unfused)
+
+    _, _, loaded_q = int8_artifact
+    serving_q = ServingModel(loaded_q.meta, loaded_q.program)
+    serving_q.warm_up((2,))
+    assert serving_q.graphs[2].epilogue_launches == 3
+    before = conv_epilogue.conv_bias_relu.launches
+    serving_q(_noise(41, 2))
+    assert conv_epilogue.conv_bias_relu.launches == before + 3
